@@ -29,6 +29,10 @@ proto: $(PKG)/proto/nufft_options.proto
 test:
 	$(PYTHON) -m pytest tests/ -q
 
+# The PyTorch port's CPU tests (held to the JAX package).
+test-torch:
+	$(PYTHON) -m pytest tests/test_torch_*.py -q
+
 test-fast:
 	$(PYTHON) -m pytest tests/ -q -m "not slow" -x
 
@@ -55,4 +59,4 @@ clean:
 	rm -rf build dist *.egg-info .pytest_cache
 	find . -name __pycache__ -type d -prune -exec rm -rf {} +
 
-.PHONY: all lib proto test test-fast benchmark benchmark-suite lint wheel docs clean
+.PHONY: all lib proto test test-torch test-fast benchmark benchmark-suite lint wheel docs clean

@@ -1,8 +1,10 @@
 """Package build for tensorflow-nufft-tpu.
 
 Pure-Python wheel; the native CPU engine (cc/nufft_cpu.cc) is compiled
-on demand at first use (see tensorflow_nufft_tpu/native/engine.py), so
-no build-time toolchain is required for installation.
+on demand at first use (see tensorflow_nufft_tpu/native/engine.py), and
+so are the PyTorch port's CUDA kernels (tensorflow_nufft_tpu_torch/csrc,
+see kernels/_build.py), so no build-time toolchain is required for
+installation.
 """
 
 import pathlib
@@ -23,8 +25,10 @@ setup(
     author=ABOUT["__author__"],
     license=ABOUT["__license__"],
     url=ABOUT["__uri__"],
-    packages=find_packages(include=["tensorflow_nufft_tpu*"]),
-    package_data={"tensorflow_nufft_tpu": ["proto/*.proto"]},
+    packages=find_packages(include=["tensorflow_nufft_tpu*",
+                                    "tensorflow_nufft_tpu_torch*"]),
+    package_data={"tensorflow_nufft_tpu": ["proto/*.proto"],
+                  "tensorflow_nufft_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     data_files=[("cc", ["cc/nufft_cpu.cc"])],
     python_requires=">=3.10",
     install_requires=[
@@ -33,6 +37,9 @@ setup(
         "pydantic>=2",
         "protobuf",
     ],
+    # The PyTorch port (tensorflow_nufft_tpu_torch) needs only torch and
+    # numpy; its CUDA kernels are built with nvcc at first use.
+    extras_require={"torch": ["torch"]},
     classifiers=[
         "Development Status :: 4 - Beta",
         "Intended Audience :: Science/Research",

@@ -1,0 +1,111 @@
+// Shared definitions of the spread and interp kernels: the launch
+// parameter layout (filled by kernels/_build.py:kernel_params) and the ES
+// kernel evaluation on one slot's two-float coordinate.
+//
+// Arithmetic note: the kernel argument z = ((i0 + j) - s) - lo and the
+// Horner argument t = (z*z)*c2 - 1 are written with __fadd_rn/__fsub_rn/
+// __fmul_rn so nvcc cannot contract them into FMAs: the low word lo is
+// ~1e-5 grid units and only survives if every step rounds as the plain
+// PyTorch (and JAX) version rounds it. The Horner loop is kept unfused
+// too, so kernel and plain version evaluate identical weights.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tnt {
+
+constexpr int kMaxWidth = 16;   // plan.MAX_KERNEL_WIDTH
+constexpr int kMaxHorner = 32;  // fit_horner_coeffs: degree <= 24
+
+// Integer launch parameters, in this order (kernels/_build.py).
+enum IParam {
+  kNt0, kNt1, kTile0, kTile1, kPad, kE0, kE1, kChunk, kBatch2, kGroup,
+  kSlots, kWidth, kNHorner, kThreads, kSmem, kNumIParams
+};
+// Float launch parameters; the Horner coefficients follow kHorner0.
+enum FParam { kHalfWidth, kC2, kBeta, kC, kHorner0 };
+
+struct Geometry {
+  int nt0, nt1;      // tiles per axis
+  int tile0, tile1;  // core tile dims
+  int pad;           // halo on each side
+  int e0, e1;        // extended (halo-padded) tile dims
+  int chunk;         // slots per chunk
+  int batch2;        // channels (2 * batch, row order (b, re/im))
+  int group;         // channels per thread block
+  int slots;         // num_chunks * chunk
+};
+
+struct EsKernel {
+  int width;
+  int n_horner;      // 0: direct exp/sqrt evaluation
+  float half_width;
+  float c2;          // 2 / half_width^2
+  float beta;
+  float c;           // 4 / width^2
+  float horner[kMaxHorner];  // ascending coefficients in t
+};
+
+inline Geometry geometry_from(const int* ip) {
+  Geometry g;
+  g.nt0 = ip[kNt0]; g.nt1 = ip[kNt1];
+  g.tile0 = ip[kTile0]; g.tile1 = ip[kTile1];
+  g.pad = ip[kPad]; g.e0 = ip[kE0]; g.e1 = ip[kE1];
+  g.chunk = ip[kChunk]; g.batch2 = ip[kBatch2]; g.group = ip[kGroup];
+  g.slots = ip[kSlots];
+  return g;
+}
+
+inline EsKernel es_from(const int* ip, const float* fp) {
+  EsKernel k;
+  k.width = ip[kWidth];
+  k.n_horner = ip[kNHorner];
+  k.half_width = fp[kHalfWidth];
+  k.c2 = fp[kC2];
+  k.beta = fp[kBeta];
+  k.c = fp[kC];
+  for (int i = 0; i < kMaxHorner; ++i)
+    k.horner[i] = i < k.n_horner ? fp[kHorner0 + i] : 0.0f;
+  return k;
+}
+
+// phi(z): the plan's Horner fit when it has one, else exp(beta sqrt(1 -
+// c z^2)); exactly zero outside the support.
+__device__ __forceinline__ float es_eval(float z, const EsKernel& k) {
+  if (k.n_horner > 0) {
+    const float t = __fsub_rn(__fmul_rn(__fmul_rn(z, z), k.c2), 1.0f);
+    if (!(t < 1.0f)) return 0.0f;
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = kMaxHorner - 1; i >= 0; --i) {
+      if (i < k.n_horner) acc = __fadd_rn(__fmul_rn(acc, t), k.horner[i]);
+    }
+    return acc;
+  }
+  if (!(fabsf(z) < k.half_width)) return 0.0f;
+  const float arg =
+      fmaxf(__fsub_rn(1.0f, __fmul_rn(k.c, __fmul_rn(z, z))), 0.0f);
+  return expf(__fmul_rn(k.beta, sqrtf(arg)));
+}
+
+// One axis of a slot's kernel window: writes w[0..width) =
+// phi(((i0 + j) - s) - lo) with s = hi - origin, i0 = ceil(s - w/2), and
+// returns i0 (clamped so far-out or NaN coordinates give an out-of-range
+// start instead of an undefined conversion). Padded slots carry
+// hi = SENTINEL, so their window starts far outside the tile.
+__device__ __forceinline__ int es_window(float hi, float lo, float origin,
+                                         const EsKernel& k, float* w) {
+  const float s = __fsub_rn(hi, origin);
+  const float f0 = ceilf(__fsub_rn(s, k.half_width));
+#pragma unroll
+  for (int j = 0; j < kMaxWidth; ++j) {
+    if (j < k.width) {
+      const float z =
+          __fsub_rn(__fsub_rn(__fadd_rn(f0, (float)j), s), lo);
+      w[j] = es_eval(z, k);
+    }
+  }
+  return (int)fminf(fmaxf(f0, -1.0e8f), 1.0e8f);
+}
+
+}  // namespace tnt

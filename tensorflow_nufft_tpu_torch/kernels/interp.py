@@ -1,0 +1,139 @@
+"""Interp: per-tile halo-padded blocks -> slot-order point values.
+
+Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_interp`` (rank 2).
+Two entry points launch the hand-written Hopper kernel of
+``csrc/interp.cu``, one per weight source:
+
+- ``interp_planned_cuda`` replaces ``pallas_interp._interp_kernel_
+  resident_mats``: precomputed per-slot windows (``KernelWeights``).
+- ``interp_unplanned_cuda`` replaces ``pallas_interp._interp_kernel``:
+  windows evaluated in the kernel from the coords payload (its
+  ``deriv_axis`` variant, used by the spread-only gradients, is not
+  ported yet).
+
+``interp_tiles_plain`` is the plain PyTorch version of both. Outputs are
+[num_chunks, B2, chunk] in slot order, as the TPU kernels write them;
+``binning.scatter_chunked`` brings them to point order. Each CUDA entry
+point counts its launches in its ``launches`` attribute.
+
+What bounds the kernel on the H100 and what its design does about it is
+in the source note of ``csrc/interp.cu``: one block per tile and channel
+group stages the tile's block in shared memory, one thread per slot keeps
+its windows in registers, and the 64 tiles of the 2D headline leave half
+the SMs idle.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from tensorflow_nufft_tpu_torch.kernels import _build, binning
+from tensorflow_nufft_tpu_torch.kernels.binning import (
+    KernelWeights, TileGeometry)
+
+_THREADS = 256
+
+
+def launch_shape(geom: TileGeometry, batch2: int):
+    """(group, threads, smem bytes) of an interp launch: the largest
+    channel group whose [group, E0, E1] block fits one Hopper block."""
+    cells = geom.ext[0] * geom.ext[1]
+    group = min(batch2, _build.SMEM_LIMIT // (4 * cells))
+    if group < 1:
+        raise ValueError(
+            f"interp kernel: extended tile {geom.ext} does not fit one "
+            f"thread block's shared memory")
+    return group, _THREADS, 4 * group * cells
+
+
+def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
+            kw: Optional[KernelWeights], coords: Optional[torch.Tensor]):
+    if geom.rank != 2:
+        raise NotImplementedError("the interp kernel is rank 2 only")
+    batch2, slots = tiles.shape[geom.rank], geom.num_slots
+    f32, i32 = torch.float32, torch.int32
+    need = functools.partial(_build.require_cuda, "interp")
+    need(tiles, "tiles", f32, geom.tiles + (batch2,) + geom.ext)
+    need(tile_bounds, "tile_bounds", i32, (geom.num_tiles + 1,))
+    if kw is not None:
+        need(kw.weights, "weights", f32, (2, slots, plan.width))
+        need(kw.starts, "starts", i32, (2, slots))
+        ptrs = (0, kw.weights.data_ptr(), kw.starts.data_ptr())
+    else:
+        need(coords, "coords", f32, (4, slots))
+        ptrs = (coords.data_ptr(), 0, 0)
+    lib = _build.library()
+    group, threads, smem = launch_shape(geom, batch2)
+    ints, floats = _build.kernel_params(geom, plan, batch2, group, threads,
+                                        smem)
+    # Zeros: chunks past tile_bounds[-1] are never written by the kernel.
+    out = torch.zeros((geom.num_chunks, batch2, geom.chunk),
+                      dtype=torch.float32, device=tiles.device)
+    with torch.cuda.device(tiles.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tnt_interp(int(kw is not None), tile_bounds.data_ptr(),
+                            tiles.data_ptr(), *ptrs, out.data_ptr(),
+                            ints, floats, stream)
+    _build.check(rc, "interp kernel launch")
+    return out
+
+
+def interp_planned_cuda(tiles: torch.Tensor, tile_bounds: torch.Tensor,
+                        geom: TileGeometry, plan,
+                        kw: KernelWeights) -> torch.Tensor:
+    """Hopper interp from the planned windows: tiles [*tiles, B2, *ext]
+    -> [num_chunks, B2, chunk] (float32)."""
+    out = _launch(tiles, tile_bounds, geom, plan, kw, None)
+    interp_planned_cuda.launches += 1
+    return out
+
+
+def interp_unplanned_cuda(tiles: torch.Tensor, tile_bounds: torch.Tensor,
+                          geom: TileGeometry, plan,
+                          coords: torch.Tensor) -> torch.Tensor:
+    """Hopper interp evaluating the windows in the kernel from the
+    [4, slots] coords payload."""
+    out = _launch(tiles, tile_bounds, geom, plan, None, coords)
+    interp_unplanned_cuda.launches += 1
+    return out
+
+
+interp_planned_cuda.launches = 0
+interp_unplanned_cuda.launches = 0
+
+
+def interp_tiles_plain(tiles: torch.Tensor, tile_bounds: torch.Tensor,
+                       geom: TileGeometry, plan,
+                       kw: Optional[KernelWeights] = None,
+                       coords: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Plain PyTorch interp, the same function as the kernel: tiles
+    [*tiles, B2, *ext] -> [num_chunks, B2, chunk], from the planned
+    windows ``kw`` or from ``coords``. Any float dtype."""
+    if kw is None:
+        kw = binning.slot_weights(coords, tile_bounds, geom, plan)
+    batch2 = tiles.shape[geom.rank]
+    e0, e1 = geom.ext
+    cells = e0 * e1
+    width = plan.width
+    dev = tiles.device
+    flat = tiles.reshape(-1)
+    tile_of = binning.slot_tiles(tile_bounds, geom)
+    starts0, starts1 = kw.starts[0].long(), kw.starts[1].long()
+    cols = starts1[:, None] + torch.arange(width, device=dev)
+    col_ok = (cols >= 0) & (cols < e1) & (tile_of >= 0)[:, None]
+    base = (tile_of.clamp(min=0)[None, :, None] * batch2
+            + torch.arange(batch2, device=dev)[:, None, None]) * cells
+    out = tiles.new_zeros(batch2, geom.num_slots)
+    for i in range(width):
+        rows = starts0 + i
+        ok = (col_ok & ((rows >= 0) & (rows < e0))[:, None])[None]
+        idx = torch.where(ok, base + (rows[:, None] * e1 + cols)[None], 0)
+        vals = torch.where(ok, flat[idx], 0.0)               # [B2, S, w]
+        inner = torch.sum(vals * kw.weights[1][None], dim=-1)
+        out = out + kw.weights[0][None, :, i] * inner
+    return out.reshape(batch2, geom.num_chunks, geom.chunk).transpose(
+        0, 1).contiguous()

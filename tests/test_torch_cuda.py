@@ -1,0 +1,147 @@
+"""Tests of the hand-written CUDA kernels; they need an NVIDIA GPU.
+
+They skip where torch sees no CUDA device (the kernels have no CPU or
+interpret mode; the CPU tests hold the plain versions to the JAX
+package). This file imports no jax, so it also runs on a GPU machine
+without it:
+
+    python -m pytest --noconftest -o markers=cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tensorflow_nufft_tpu_torch as tnt
+from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
+from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+
+pytestmark = pytest.mark.cuda
+RTOL = 1e-5
+# (grid, points, tol, kernel evaluation, clustered points): both Horner
+# widths, the in-kernel exp/sqrt branch, mostly-empty tiles, headline.
+CASES = [
+    ((64, 96), 2000, 1e-6, "auto", False),
+    ((64, 96), 2000, 1e-3, "auto", False),
+    ((64, 96), 2000, 1e-6, "direct", False),
+    ((64, 96), 2000, 1e-6, "auto", True),
+    ((256, 256), 65536, 1e-6, "auto", False),
+]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _layout(grid, m, tol, dev, seed=0, kev="auto", clustered=False):
+    plan = make_plan(PlanSpec("type_1", "forward", 2, grid, "complex64",
+                              tol, 1, kernel_evaluation_method=kev))
+    rng = np.random.default_rng(seed)
+    if clustered:
+        # Two tight clusters: most tiles own one chunk of padded slots.
+        pts = np.array([[0.3, -2.0], [-1.1, 2.9]])[rng.integers(0, 2, m)]
+        pts = (pts + 0.05 * rng.standard_normal((m, 2))).astype(np.float32)
+    else:
+        pts = rng.uniform(-np.pi, np.pi, (m, 2)).astype(np.float32)
+    geom, binned = bin_for_plan(torch.from_numpy(pts).to(dev), plan)
+    kw = binning.build_weight_payload(binned, geom, plan)
+    return plan, geom, binned, kw, binning.build_coords_payload(binned)
+
+
+def _close(got, want):
+    assert got.shape == want.shape
+    peak = float(want.abs().max())
+    assert float((got - want).abs().max()) <= RTOL * peak
+
+
+@pytest.mark.parametrize("grid,m,tol,kev,clustered", CASES)
+@pytest.mark.parametrize("b2", (2, 8))
+@pytest.mark.parametrize("source", ("planned", "unplanned"))
+def test_spread_kernel_matches_plain(dev, grid, m, tol, kev, clustered,
+                                    b2, source):
+    plan, geom, binned, kw, coords = _layout(grid, m, tol, dev, kev=kev,
+                                             clustered=clustered)
+    vals = torch.from_numpy(np.random.default_rng(b2).standard_normal(
+        (b2, m)).astype(np.float32)).to(dev)
+    values_pl = binning.build_values_payload(vals, binned)
+    tb = binned.tile_bounds
+    if source == "planned":
+        got = spread.spread_planned_cuda(values_pl, tb, geom, plan, kw)
+        want = spread.spread_tiles_plain(values_pl, tb, geom, plan, kw=kw)
+    else:
+        got = spread.spread_unplanned_cuda(values_pl, tb, geom, plan,
+                                           coords)
+        want = spread.spread_tiles_plain(values_pl, tb, geom, plan,
+                                         coords=coords)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("grid,m,tol,kev,clustered", CASES)
+@pytest.mark.parametrize("b2", (2, 8))
+@pytest.mark.parametrize("source", ("planned", "unplanned"))
+def test_interp_kernel_matches_plain(dev, grid, m, tol, kev, clustered,
+                                    b2, source):
+    plan, geom, binned, kw, coords = _layout(grid, m, tol, dev, kev=kev,
+                                             clustered=clustered)
+    tiles = torch.from_numpy(np.random.default_rng(b2).standard_normal(
+        geom.tiles + (b2,) + geom.ext).astype(np.float32)).to(dev)
+    tb = binned.tile_bounds
+    if source == "planned":
+        got = interp.interp_planned_cuda(tiles, tb, geom, plan, kw)
+        want = interp.interp_tiles_plain(tiles, tb, geom, plan, kw=kw)
+    else:
+        got = interp.interp_unplanned_cuda(tiles, tb, geom, plan, coords)
+        want = interp.interp_tiles_plain(tiles, tb, geom, plan,
+                                         coords=coords)
+    _close(got, want)
+
+
+def test_spread_kernel_is_deterministic(dev):
+    plan, geom, binned, kw, _ = _layout((256, 256), 65536, 1e-6, dev)
+    vals = torch.randn(2, 65536, device=dev)
+    values_pl = binning.build_values_payload(vals, binned)
+    first = spread.spread_planned_cuda(values_pl, binned.tile_bounds, geom,
+                                       plan, kw)
+    for _ in range(3):
+        again = spread.spread_planned_cuda(values_pl, binned.tile_bounds,
+                                           geom, plan, kw)
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
+@pytest.mark.parametrize("points_range,scale", [(0, 1.0), (1, 3.0),
+                                                 (2, 20.0)])
+def test_transform_on_cuda_matches_cpu(dev, transform_type, points_range,
+                                       scale):
+    grid, m = (64, 96), 3000
+    rng = np.random.default_rng(4)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, 2)).astype(
+        np.float32) * np.float32(scale))
+    shape = (2, m, 2) if transform_type == "type_1" else (2,) + grid + (2,)
+    src = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    kw = dict(grid_shape=grid if transform_type == "type_1" else None,
+              transform_type=transform_type, fft_direction="backward",
+              options=tnt.Options(points_range=points_range))
+    want = tnt.planar.nufft(src, pts, **kw)
+    counters = (spread.spread_unplanned_cuda, interp.interp_unplanned_cuda)
+    before = [c.launches for c in counters]
+    got = tnt.planar.nufft(src.to(dev), pts.to(dev), **kw)
+    assert got.device.type == "cuda"
+    assert sum(c.launches for c in counters) == sum(before) + 1
+    _close(got.cpu(), want)
+    op = tnt.PlannedNufft(pts, grid, transform_type=transform_type,
+                          fft_direction="backward", options=kw["options"],
+                          device=dev)
+    _close(op(src.to(dev)).cpu(), want)
+
+
+def test_float64_on_cuda_raises(dev):
+    pts = torch.rand(100, 2, dtype=torch.float64, device=dev)
+    src = torch.rand(100, 2, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        tnt.planar.nufft(src, pts, grid_shape=(32, 32),
+                         transform_type="type_1")

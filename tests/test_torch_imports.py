@@ -1,0 +1,47 @@
+"""The PyTorch port stands alone: no jax, no JAX package, no pydantic."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "tensorflow_nufft_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "tensorflow_nufft_tpu", "pydantic",
+             "google.protobuf")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, tensorflow_nufft_tpu_torch as t; "
+            "t.planar.PlannedNufft; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tensorflow_nufft_tpu', 'pydantic')]; "
+            "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          check=False)
+    assert proc.returncode == 0, proc.stderr
