@@ -1,15 +1,18 @@
-"""PyTorch port of tensorflow_nufft_tpu (planar 2D type-1/type-2 NUFFT).
+"""PyTorch port of tensorflow_nufft_tpu (planar 2D and 3D type-1/type-2
+NUFFT).
 
-The spread and interp hot loops run as hand-written CUDA kernels on CUDA
-tensors (``csrc/``, built with nvcc at first use) and as their plain
-PyTorch versions on CPU tensors. Everything else (fold, binning, FFT
-stages) is plain torch, mirroring the JAX package module for module.
+The spread and interp hot loops, and at 3D the mode stages around cuFFT,
+run as hand-written CUDA kernels on CUDA tensors (``csrc/``, built with
+nvcc at first use) and as their plain PyTorch versions on CPU tensors.
+Everything else (fold, binning, the FFT) is plain torch, mirroring the
+JAX package module for module. Numpy input goes to the CUDA card unless
+the caller passes ``device=``.
 
 Typical usage::
 
     import tensorflow_nufft_tpu_torch as tnt
-    op = tnt.planar.PlannedNufft(points, (256, 256), "type_1")
-    modes = op(strengths)          # [B, M, 2] -> [B, 256, 256, 2]
+    op = tnt.planar.PlannedNufft(points, (128, 128, 128), "type_1")
+    modes = op(strengths)          # [B, M, 2] -> [B, 128, 128, 128, 2]
 """
 
 from tensorflow_nufft_tpu_torch.__about__ import __version__

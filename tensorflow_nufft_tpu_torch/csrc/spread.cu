@@ -1,36 +1,50 @@
 // Spread (type-1 step 1) for NVIDIA Hopper: slot-order point values ->
-// per-tile halo-padded blocks [nt0 * nt1, B2, E0, E1] (float32, rank 2).
+// per-tile halo-padded blocks [num_tiles, B2, *ext] (float32, rank 2 or
+// 3).
 //
-// Replaces two Pallas TPU kernels:
+// Replaces four Pallas TPU kernels:
 //   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_resident_mats
-//     (planned: precomputed kernel weights; here kPlanned = true), and
+//   and :_spread_kernel_mats (the rank-3 per-tile grid): precomputed
+//     kernel weights; here kPlanned = true;
 //   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_resident
-//     (unplanned: Horner or exp/sqrt evaluated in-kernel on the two-float
-//     coordinates; here kPlanned = false).
+//   and :_spread_kernel (the rank-3 per-tile grid with its sub-chunk
+//     fold): Horner or exp/sqrt evaluated in-kernel on the two-float
+//     coordinates; here kPlanned = false.
+// The TPU needs the per-tile-grid twins because VMEM cannot hold the
+// whole tile array; on Hopper every block owns one tile at any rank, so
+// one kernel serves all four. Where the TPU plan cannot keep its dense
+// matrices (the 3D headline) it runs :_spread_kernel_banded instead,
+// whose tile blocks are the same; the planned kernel computes them on
+// the unbanded geometry (the axis-0 band itself is not ported).
 //
 // Design. One thread block per (tile, channel group) owns the tile's
-// [group, E0, E1] halo block in dynamic shared memory (20.7 KB per channel
-// at E = 72) and walks the tile's own chunks tile_bounds[t] ..
-// tile_bounds[t+1]; the TPU kernels walked one global chunk stream, which
-// has no counterpart when blocks run in parallel. Each chunk is staged in
-// kSub-slot pieces: per slot the two axis windows (start + width weights,
-// loaded from the planned artifact or evaluated here) and the group's
-// values. Then every thread owns one (channel, e0) row of the block and
-// adds, in slot order, the contribution w0 * (v * w1[j]) of each slot
-// whose axis-0 window covers its row.
+// [group, *ext] halo block in dynamic shared memory (20.7 KB per channel
+// at 2D ext 72^2, 166 KB at 3D ext (24, 24, 72)) and walks the tile's own
+// chunks tile_bounds[t] .. tile_bounds[t+1]; the TPU kernels walked one
+// global chunk stream (or one grid step per tile in sequence), which has
+// no counterpart when blocks run in parallel. Each chunk is staged in
+// kSub-slot pieces: per slot the kRank axis windows (start + width
+// weights, loaded from the planned artifact or evaluated here) and the
+// group's values. Then every thread owns one row of the block along the
+// last axis -- (channel, e0) at rank 2, (channel, e0, e1) at rank 3 --
+// and adds, in slot order, the contribution wl * (v * wlast[j]) of each
+// slot whose leading-axis windows cover its row, where wl is the product
+// of the leading-axis weights (w0 at rank 2, w0 * w1 at rank 3: the
+// Khatri-Rao factor of the TPU kernels' fold).
 //
 // Determinism: each output cell is written by exactly one thread, in slot
 // order, with no atomics, so the result is bit-repeatable like the TPU
 // kernel's. Shared-memory atomics (the cuFINUFFT SM method) would let all
 // threads work on every slot; that is a later performance change.
 //
-// What bounds it on the H100: at the 2D headline (8 x 8 tiles) the grid
-// has 64 blocks for 132 SMs, and within a block only the rows a slot's
-// window covers (width of E0) do work on it, so the kernel is latency-
-// and occupancy-bound, not bound by memory traffic (the planned artifact
-// is ~6 MB, read once). The design keeps the traffic minimal (per-slot
-// windows instead of the TPU path's dense, mostly-zero [E, chunk]
-// matrices) and leaves the occupancy finding to a later PR.
+// What bounds it on the H100: the kernel is latency- and occupancy-bound,
+// not bound by memory traffic (the planned artifact is read once). At the
+// 2D headline (8 x 8 tiles) the grid has 64 blocks for 132 SMs, and only
+// the rows a slot's window covers do work on it: w of E0 rows at rank 2,
+// w^2 = 49 of the 576 rows at 3D ext (24, 24, 72). At rank 3 the 179 KB
+// block allows one block per SM. The design keeps the traffic minimal
+// (per-slot windows instead of the TPU path's dense, mostly-zero
+// [sum(E), chunk] matrices) and leaves occupancy to later work.
 #include "tnt_common.cuh"
 
 namespace {
@@ -40,7 +54,7 @@ using tnt::Geometry;
 
 constexpr int kSub = 128;  // slots staged at a time (kernels/spread.py)
 
-template <bool kPlanned>
+template <int kRank, bool kPlanned>
 __global__ void spread_kernel(const int* __restrict__ tile_bounds,
                               const float* __restrict__ values,
                               const float* __restrict__ coords,
@@ -48,28 +62,39 @@ __global__ void spread_kernel(const int* __restrict__ tile_bounds,
                               const int* __restrict__ starts,
                               float* __restrict__ out, Geometry g,
                               EsKernel k) {
+  constexpr int kLast = kRank - 1;
   extern __shared__ float smem[];
   const int tile = blockIdx.x;
   const int c0 = blockIdx.y * g.group;
   const int nc = min(g.group, g.batch2 - c0);
   const int w = k.width;
-  const int cells = g.e0 * g.e1;
-  float* acc = smem;                      // [group][E0][E1]
-  float* sw = acc + g.group * cells;      // [2][kSub][w] window weights
-  float* sv = sw + 2 * kSub * w;          // [group][kSub] values
-  int* ss = reinterpret_cast<int*>(sv + g.group * kSub);  // [2][kSub]
+  const int len = g.e[kLast];  // row length: the last axis
+  int rows = 1;                // rows per channel: the leading axes
+#pragma unroll
+  for (int d = 0; d < kLast; ++d) rows *= g.e[d];
+  const int cells = rows * len;
+  float* acc = smem;                            // [group][*ext]
+  float* sw = acc + g.group * cells;            // [kRank][kSub][w]
+  float* sv = sw + kRank * kSub * w;            // [group][kSub] values
+  int* ss = reinterpret_cast<int*>(sv + g.group * kSub);  // [kRank][kSub]
 
   for (int i = threadIdx.x; i < nc * cells; i += blockDim.x) acc[i] = 0.0f;
-  const float origin0 = (float)((tile / g.nt1) * g.tile0 - g.pad);
-  const float origin1 = (float)((tile % g.nt1) * g.tile1 - g.pad);
+  float origin[kRank];
+  tnt::tile_origins<kRank>(g, tile, origin);
   const int kbeg = tile_bounds[tile];
   const int kend = tile_bounds[tile + 1];
-  // The (channel, e0) row this thread owns.
+  // The row this thread owns: channel b and its leading-axis indices.
   const int row = threadIdx.x;
-  const bool owner = row < nc * g.e0;
-  const int b = row / g.e0;
-  const int e0 = row - b * g.e0;
-  float* arow = acc + row * g.e1;
+  const bool owner = row < nc * rows;
+  const int b = row / rows;
+  int lead[kRank];
+  int r = row - b * rows;
+#pragma unroll
+  for (int d = kLast - 1; d >= 0; --d) {
+    lead[d] = r % g.e[d];
+    r /= g.e[d];
+  }
+  float* arow = acc + row * len;
 
   for (int kc = kbeg; kc < kend; ++kc) {
     for (int off = 0; off < g.chunk; off += kSub) {
@@ -77,24 +102,25 @@ __global__ void spread_kernel(const int* __restrict__ tile_bounds,
       const int base = kc * g.chunk + off;
       __syncthreads();  // the previous piece is consumed
       if (kPlanned) {
-        const float* w0g = weights + (size_t)base * w;
-        const float* w1g = weights + ((size_t)g.slots + base) * w;
         for (int i = threadIdx.x; i < n * w; i += blockDim.x) {
-          sw[i] = w0g[i];
-          sw[kSub * w + i] = w1g[i];
+#pragma unroll
+          for (int d = 0; d < kRank; ++d)
+            sw[d * kSub * w + i] =
+                weights[((size_t)d * g.slots + base) * w + i];
         }
       }
       for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const int slot = base + i;
-        if (kPlanned) {
-          ss[i] = starts[slot];
-          ss[kSub + i] = starts[g.slots + slot];
-        } else {
-          ss[i] = tnt::es_window(coords[slot], coords[2 * g.slots + slot],
-                                 origin0, k, sw + i * w);
-          ss[kSub + i] = tnt::es_window(
-              coords[g.slots + slot], coords[3 * g.slots + slot], origin1,
-              k, sw + (kSub + i) * w);
+#pragma unroll
+        for (int d = 0; d < kRank; ++d) {
+          if (kPlanned) {
+            ss[d * kSub + i] = starts[(size_t)d * g.slots + slot];
+          } else {
+            ss[d * kSub + i] = tnt::es_window(
+                coords[(size_t)d * g.slots + slot],
+                coords[(size_t)(kRank + d) * g.slots + slot], origin[d], k,
+                sw + (d * kSub + i) * w);
+          }
         }
         for (int c = 0; c < nc; ++c)
           sv[c * kSub + i] = values[(size_t)(c0 + c) * g.slots + slot];
@@ -102,17 +128,27 @@ __global__ void spread_kernel(const int* __restrict__ tile_bounds,
       __syncthreads();
       if (owner) {
         for (int i = 0; i < n; ++i) {
-          const int d0 = e0 - ss[i];
-          if ((unsigned)d0 >= (unsigned)w) continue;
-          const float w0 = sw[i * w + d0];
+          bool covered = true;
+          float wl = 1.0f;
+#pragma unroll
+          for (int d = 0; d < kLast; ++d) {
+            const int dd = lead[d] - ss[d * kSub + i];
+            if ((unsigned)dd >= (unsigned)w) {
+              covered = false;
+              break;
+            }
+            const float wd = sw[(d * kSub + i) * w + dd];
+            wl = d == 0 ? wd : __fmul_rn(wl, wd);
+          }
+          if (!covered) continue;
           const float v = sv[b * kSub + i];
-          const int s1 = ss[kSub + i];
-          const float* w1 = sw + (kSub + i) * w;
+          const int s = ss[kLast * kSub + i];
+          const float* wlast = sw + (kLast * kSub + i) * w;
           for (int j = 0; j < w; ++j) {
-            const int col = s1 + j;
-            if ((unsigned)col < (unsigned)g.e1)
+            const int col = s + j;
+            if ((unsigned)col < (unsigned)len)
               arow[col] = __fadd_rn(arow[col],
-                                    __fmul_rn(w0, __fmul_rn(v, w1[j])));
+                                    __fmul_rn(wl, __fmul_rn(v, wlast[j])));
           }
         }
       }
@@ -123,13 +159,24 @@ __global__ void spread_kernel(const int* __restrict__ tile_bounds,
   for (int i = threadIdx.x; i < nc * cells; i += blockDim.x) dst[i] = acc[i];
 }
 
+using SpreadFn = void (*)(const int*, const float*, const float*,
+                          const float*, const int*, float*, Geometry,
+                          EsKernel);
+
+SpreadFn spread_fn(int rank, bool planned) {
+  if (rank == 2) return planned ? spread_kernel<2, true>
+                                : spread_kernel<2, false>;
+  return planned ? spread_kernel<3, true> : spread_kernel<3, false>;
+}
+
 }  // namespace
 
-// planned != 0: weights/starts are the planned artifact ([2, slots, w]
-// float32 and [2, slots] int32) and coords is unused; planned == 0:
-// coords is the [4, slots] payload (hi0, hi1, lo0, lo1). values is
-// [B2, slots]; out is [nt0 * nt1, B2, E0, E1]. Returns the launch's CUDA
-// error (0 on success).
+// planned != 0: weights/starts are the planned artifact ([rank, slots, w]
+// float32 and [rank, slots] int32) and coords is unused; planned == 0:
+// coords is the [2 * rank, slots] payload (hi words, then lo words).
+// values is [B2, slots]; out is [num_tiles, B2, *ext]. Returns the
+// launch's CUDA error (0 on success; cudaErrorInvalidValue for a rank
+// other than 2 or 3).
 extern "C" int tnt_spread(int planned, const void* tile_bounds,
                           const void* values, const void* coords,
                           const void* weights, const void* starts,
@@ -137,11 +184,10 @@ extern "C" int tnt_spread(int planned, const void* tile_bounds,
                           void* stream) {
   const Geometry g = tnt::geometry_from(ip);
   const EsKernel k = tnt::es_from(ip, fp);
-  const dim3 grid(g.nt0 * g.nt1, (g.batch2 + g.group - 1) / g.group);
+  if (g.rank != 2 && g.rank != 3) return (int)cudaErrorInvalidValue;
+  const dim3 grid(tnt::num_tiles(g), (g.batch2 + g.group - 1) / g.group);
   const int smem = ip[tnt::kSmem];
-  void (*fn)(const int*, const float*, const float*, const float*,
-             const int*, float*, Geometry, EsKernel) =
-      planned ? spread_kernel<true> : spread_kernel<false>;
+  const SpreadFn fn = spread_fn(g.rank, planned != 0);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

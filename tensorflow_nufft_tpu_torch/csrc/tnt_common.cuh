@@ -1,6 +1,7 @@
 // Shared definitions of the spread and interp kernels: the launch
-// parameter layout (filled by kernels/_build.py:kernel_params) and the ES
-// kernel evaluation on one slot's two-float coordinate.
+// parameter layout (filled by kernels/_build.py:kernel_params), the tile
+// geometry at rank 2 or 3, and the ES kernel evaluation on one slot's
+// two-float coordinate.
 //
 // Arithmetic note: the kernel argument z = ((i0 + j) - s) - lo and the
 // Horner argument t = (z*z)*c2 - 1 are written with __fadd_rn/__fsub_rn/
@@ -16,24 +17,28 @@ namespace tnt {
 
 constexpr int kMaxWidth = 16;   // plan.MAX_KERNEL_WIDTH
 constexpr int kMaxHorner = 32;  // fit_horner_coeffs: degree <= 24
+constexpr int kMaxRank = 3;
 
-// Integer launch parameters, in this order (kernels/_build.py).
+// Integer launch parameters, in this order (kernels/_build.py). Per-axis
+// entries past the rank are 1.
 enum IParam {
-  kNt0, kNt1, kTile0, kTile1, kPad, kE0, kE1, kChunk, kBatch2, kGroup,
-  kSlots, kWidth, kNHorner, kThreads, kSmem, kNumIParams
+  kRank, kNt0, kNt1, kNt2, kTile0, kTile1, kTile2, kPad, kE0, kE1, kE2,
+  kChunk, kBatch2, kGroup, kSlots, kWidth, kNHorner, kThreads, kSmem,
+  kNumIParams
 };
 // Float launch parameters; the Horner coefficients follow kHorner0.
 enum FParam { kHalfWidth, kC2, kBeta, kC, kHorner0 };
 
 struct Geometry {
-  int nt0, nt1;      // tiles per axis
-  int tile0, tile1;  // core tile dims
-  int pad;           // halo on each side
-  int e0, e1;        // extended (halo-padded) tile dims
-  int chunk;         // slots per chunk
-  int batch2;        // channels (2 * batch, row order (b, re/im))
-  int group;         // channels per thread block
-  int slots;         // num_chunks * chunk
+  int rank;
+  int nt[kMaxRank];    // tiles per axis
+  int tile[kMaxRank];  // core tile dims
+  int pad;             // halo on each side
+  int e[kMaxRank];     // extended (halo-padded) tile dims
+  int chunk;           // slots per chunk
+  int batch2;          // channels (2 * batch, row order (b, re/im))
+  int group;           // channels per thread block
+  int slots;           // num_chunks * chunk
 };
 
 struct EsKernel {
@@ -48,9 +53,13 @@ struct EsKernel {
 
 inline Geometry geometry_from(const int* ip) {
   Geometry g;
-  g.nt0 = ip[kNt0]; g.nt1 = ip[kNt1];
-  g.tile0 = ip[kTile0]; g.tile1 = ip[kTile1];
-  g.pad = ip[kPad]; g.e0 = ip[kE0]; g.e1 = ip[kE1];
+  g.rank = ip[kRank];
+  for (int d = 0; d < kMaxRank; ++d) {
+    g.nt[d] = ip[kNt0 + d];
+    g.tile[d] = ip[kTile0 + d];
+    g.e[d] = ip[kE0 + d];
+  }
+  g.pad = ip[kPad];
   g.chunk = ip[kChunk]; g.batch2 = ip[kBatch2]; g.group = ip[kGroup];
   g.slots = ip[kSlots];
   return g;
@@ -67,6 +76,23 @@ inline EsKernel es_from(const int* ip, const float* fp) {
   for (int i = 0; i < kMaxHorner; ++i)
     k.horner[i] = i < k.n_horner ? fp[kHorner0 + i] : 0.0f;
   return k;
+}
+
+inline int num_tiles(const Geometry& g) {
+  return g.nt[0] * g.nt[1] * g.nt[2];
+}
+
+// Extended-tile origin (tile index * tile - pad) of each axis of the
+// row-major tile number `tile`.
+template <int kRank>
+__device__ __forceinline__ void tile_origins(const Geometry& g, int tile,
+                                             float* origin) {
+#pragma unroll
+  for (int d = kRank - 1; d >= 0; --d) {
+    const int t = tile % g.nt[d];
+    tile /= g.nt[d];
+    origin[d] = (float)(t * g.tile[d] - g.pad);
+  }
 }
 
 // phi(z): the plan's Horner fit when it has one, else exp(beta sqrt(1 -

@@ -2,9 +2,10 @@
 
 The sources are compiled by hand with nvcc for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes``, at first
-use. No PyTorch header is included, so a build takes seconds. The library
-is keyed by a hash of the sources and flags and lives under
-``build/torch_kernels/`` at the repository root.
+use: one nvcc per source, all started together, then one link, so the
+build takes as long as the slowest source. No PyTorch header is
+included. The library is keyed by a hash of the sources and flags and
+lives under ``build/torch_kernels/`` at the repository root.
 
 Every C entry point returns the CUDA error of its launch
 (``cudaGetLastError()``); the wrappers raise when it is not 0.
@@ -24,9 +25,9 @@ from typing import Optional
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "torch_kernels")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -71,8 +72,54 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, i32p,
                        f32p, ptr]
         fn.restype = ctypes.c_int
+    # Mode stages: (in, out, mode params, stream), and (in, w0, w1, w2,
+    # out, mode params, stream) for the two that apply the weights.
+    for name in ("tnt_fold3d", "tnt_extend_tiles3d"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, i32p, ptr]
+        fn.restype = ctypes.c_int
+    for name in ("tnt_truncate_deconvolve3d", "tnt_amplify_pad3d"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32p, ptr]
+        fn.restype = ctypes.c_int
     lib.tnt_error_string.argtypes = [ctypes.c_int]
     lib.tnt_error_string.restype = ctypes.c_char_p
+
+
+def _compile_and_link(sources, so: pathlib.Path) -> str:
+    """Compiles every source with its own nvcc, all at once, links them
+    into ``so`` and returns the commands and their output. Raises if one
+    fails."""
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{so.stem}_{src.stem}.{tag}.o") for src in sources]
+    jobs = []
+    for src, obj in zip(sources, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    tmp = so.with_name(f"{so.name}.{tag}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
+    os.replace(tmp, so)
+    return log
 
 
 def library() -> ctypes.CDLL:
@@ -90,20 +137,10 @@ def library() -> ctypes.CDLL:
     BuildInfo.path, BuildInfo.compiled = so, False
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sources)]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              check=False)
+        BuildInfo.log = _compile_and_link(sources, so)
         BuildInfo.seconds = time.perf_counter() - start
-        BuildInfo.log = proc.stdout + proc.stderr
-        (BUILD_DIR / f"build_{key}.log").write_text(
-            " ".join(cmd) + "\n" + BuildInfo.log)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{BuildInfo.log}")
-        os.replace(tmp, so)
+        (BUILD_DIR / f"build_{key}.log").write_text(BuildInfo.log)
         BuildInfo.compiled = True
     lib = ctypes.CDLL(str(so))
     _declare(lib)
@@ -116,20 +153,37 @@ def library() -> ctypes.CDLL:
 SMEM_LIMIT = 232448
 
 
+def _per_axis(values, rank: int):
+    """Per-axis values padded with 1 to the kernels' three axes."""
+    return tuple(values) + (1,) * (3 - rank)
+
+
 def kernel_params(geom, plan, batch2: int, group: int, threads: int,
                   smem: int):
-    """The (int, float) host parameter arrays of a launch, in the order
-    of ``IParam``/``FParam`` in ``csrc/tnt_common.cuh``."""
+    """The (int, float) host parameter arrays of a spread or interp
+    launch, in the order of ``IParam``/``FParam`` in
+    ``csrc/tnt_common.cuh``."""
     horner = tuple(plan.horner) if plan.horner is not None else ()
-    ints = (geom.tiles[0], geom.tiles[1], geom.tile[0], geom.tile[1],
-            geom.pad, geom.ext[0], geom.ext[1], geom.chunk, batch2, group,
-            geom.num_slots, plan.width, len(horner), threads, smem)
+    rank = geom.rank
+    ints = ((rank,) + _per_axis(geom.tiles, rank)
+            + _per_axis(geom.tile, rank) + (geom.pad,)
+            + _per_axis(geom.ext, rank)
+            + (geom.chunk, batch2, group, geom.num_slots, plan.width,
+               len(horner), threads, smem))
     hw = float(plan.half_width)
     floats = (hw, 2.0 / (hw * hw), plan.beta, plan.c) + horner
     # ctypes.c_float rounds each double to float32, as the plain
     # version's np.float32 constants do.
     return ((ctypes.c_int * len(ints))(*ints),
             (ctypes.c_float * len(floats))(*floats))
+
+
+def mode_params(geom, grid_shape, batch: int):
+    """The int parameter array of a rank-3 mode-stage launch, in the
+    order of ``ModeParam`` in ``csrc/mode3d.cu``."""
+    ints = ((batch,) + tuple(geom.fine_shape) + tuple(grid_shape)
+            + tuple(geom.tiles) + tuple(geom.tile) + (geom.pad,))
+    return (ctypes.c_int * len(ints))(*ints)
 
 
 def require_cuda(kernel: str, t, name: str, dtype, shape) -> None:

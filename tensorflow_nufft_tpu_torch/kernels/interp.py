@@ -1,15 +1,18 @@
 """Interp: per-tile halo-padded blocks -> slot-order point values.
 
-Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_interp`` (rank 2).
-Two entry points launch the hand-written Hopper kernel of
+Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_interp`` (ranks 2
+and 3). Two entry points launch the hand-written Hopper kernel of
 ``csrc/interp.cu``, one per weight source:
 
 - ``interp_planned_cuda`` replaces ``pallas_interp._interp_kernel_
-  resident_mats``: precomputed per-slot windows (``KernelWeights``).
-- ``interp_unplanned_cuda`` replaces ``pallas_interp._interp_kernel``:
-  windows evaluated in the kernel from the coords payload (its
-  ``deriv_axis`` variant, used by the spread-only gradients, is not
-  ported yet).
+  resident_mats`` (rank 2) and ``_interp_kernel_mats`` (the rank-3
+  per-tile grid): precomputed per-slot windows (``KernelWeights``).
+  Where the JAX plan cannot keep its dense matrices (the 3D headline)
+  it runs ``_interp_kernel_banded`` on the same tile blocks instead.
+- ``interp_unplanned_cuda`` replaces ``pallas_interp._interp_kernel``
+  (ranks 2 and 3): windows evaluated in the kernel from the coords
+  payload (its ``deriv_axis`` variant, used by the spread-only
+  gradients, is not ported yet).
 
 ``interp_tiles_plain`` is the plain PyTorch version of both. Outputs are
 [num_chunks, B2, chunk] in slot order, as the TPU kernels write them;
@@ -18,16 +21,17 @@ point counts its launches in its ``launches`` attribute.
 
 What bounds the kernel on the H100 and what its design does about it is
 in the source note of ``csrc/interp.cu``: one block per tile and channel
-group stages the tile's block in shared memory, one thread per slot keeps
-its windows in registers, and the 64 tiles of the 2D headline leave half
-the SMs idle.
+group stages the tile's block in shared memory and one thread per slot
+forms its windows and contracts them with the block.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tensorflow_nufft_tpu_torch.kernels import _build, binning
@@ -39,8 +43,8 @@ _THREADS = 256
 
 def launch_shape(geom: TileGeometry, batch2: int):
     """(group, threads, smem bytes) of an interp launch: the largest
-    channel group whose [group, E0, E1] block fits one Hopper block."""
-    cells = geom.ext[0] * geom.ext[1]
+    channel group whose [group, *ext] block fits one Hopper block."""
+    cells = int(np.prod(geom.ext))
     group = min(batch2, _build.SMEM_LIMIT // (4 * cells))
     if group < 1:
         raise ValueError(
@@ -51,19 +55,20 @@ def launch_shape(geom: TileGeometry, batch2: int):
 
 def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
             kw: Optional[KernelWeights], coords: Optional[torch.Tensor]):
-    if geom.rank != 2:
-        raise NotImplementedError("the interp kernel is rank 2 only")
-    batch2, slots = tiles.shape[geom.rank], geom.num_slots
+    rank = geom.rank
+    if rank not in (2, 3):
+        raise NotImplementedError("the interp kernel takes ranks 2 and 3")
+    batch2, slots = tiles.shape[rank], geom.num_slots
     f32, i32 = torch.float32, torch.int32
     need = functools.partial(_build.require_cuda, "interp")
     need(tiles, "tiles", f32, geom.tiles + (batch2,) + geom.ext)
     need(tile_bounds, "tile_bounds", i32, (geom.num_tiles + 1,))
     if kw is not None:
-        need(kw.weights, "weights", f32, (2, slots, plan.width))
-        need(kw.starts, "starts", i32, (2, slots))
+        need(kw.weights, "weights", f32, (rank, slots, plan.width))
+        need(kw.starts, "starts", i32, (rank, slots))
         ptrs = (0, kw.weights.data_ptr(), kw.starts.data_ptr())
     else:
-        need(coords, "coords", f32, (4, slots))
+        need(coords, "coords", f32, (2 * rank, slots))
         ptrs = (coords.data_ptr(), 0, 0)
     lib = _build.library()
     group, threads, smem = launch_shape(geom, batch2)
@@ -112,28 +117,37 @@ def interp_tiles_plain(tiles: torch.Tensor, tile_bounds: torch.Tensor,
                        ) -> torch.Tensor:
     """Plain PyTorch interp, the same function as the kernel: tiles
     [*tiles, B2, *ext] -> [num_chunks, B2, chunk], from the planned
-    windows ``kw`` or from ``coords``. Any float dtype."""
+    windows ``kw`` or from ``coords``. Any float dtype. Per leading-axis
+    window offset, one [B2, slots, width] gather contracted with the
+    last axis's window, then weighted by the leading-axis product, as
+    the kernel does."""
     if kw is None:
         kw = binning.slot_weights(coords, tile_bounds, geom, plan)
     batch2 = tiles.shape[geom.rank]
-    e0, e1 = geom.ext
-    cells = e0 * e1
-    width = plan.width
+    ext, rank, width = geom.ext, geom.rank, plan.width
+    cells = int(np.prod(ext))
     dev = tiles.device
     flat = tiles.reshape(-1)
     tile_of = binning.slot_tiles(tile_bounds, geom)
-    starts0, starts1 = kw.starts[0].long(), kw.starts[1].long()
-    cols = starts1[:, None] + torch.arange(width, device=dev)
-    col_ok = (cols >= 0) & (cols < e1) & (tile_of >= 0)[:, None]
+    starts = [s.long() for s in kw.starts]
+    cols = starts[-1][:, None] + torch.arange(width, device=dev)
+    col_ok = (cols >= 0) & (cols < ext[-1]) & (tile_of >= 0)[:, None]
     base = (tile_of.clamp(min=0)[None, :, None] * batch2
             + torch.arange(batch2, device=dev)[:, None, None]) * cells
     out = tiles.new_zeros(batch2, geom.num_slots)
-    for i in range(width):
-        rows = starts0 + i
-        ok = (col_ok & ((rows >= 0) & (rows < e0))[:, None])[None]
-        idx = torch.where(ok, base + (rows[:, None] * e1 + cols)[None], 0)
+    for offs in itertools.product(range(width), repeat=rank - 1):
+        ok, row, wl = col_ok, 0, None
+        for d, o in enumerate(offs):
+            r = starts[d] + o
+            ok = ok & ((r >= 0) & (r < ext[d]))[:, None]
+            row = row * ext[d] + r
+            wd = kw.weights[d][:, o]
+            wl = wd if wl is None else wl * wd
+        ok = ok[None]
+        idx = torch.where(ok, base + (row[:, None] * ext[-1] + cols)[None],
+                          0)
         vals = torch.where(ok, flat[idx], 0.0)               # [B2, S, w]
-        inner = torch.sum(vals * kw.weights[1][None], dim=-1)
-        out = out + kw.weights[0][None, :, i] * inner
+        inner = torch.sum(vals * kw.weights[-1][None], dim=-1)
+        out = out + wl[None] * inner
     return out.reshape(batch2, geom.num_chunks, geom.chunk).transpose(
         0, 1).contiguous()

@@ -1,0 +1,210 @@
+"""Mode stages around the FFT: halo fold, truncation and deconvolution
+(type-1), amplification, padding and halo windows (type-2).
+
+Counterpart of the rank-3 ``tensorflow_nufft_tpu.kernels.pallas_dft``
+pass chains. The TPU computes the mode-stage DFT as matrix products
+because it has no usable complex FFT; here the DFT is cuFFT through
+``torch.fft`` (``fft.planar_fft``), and the four other steps are
+hand-written Hopper kernels of ``csrc/mode3d.cu``, one per entry point:
+
+- ``fold3d_cuda`` and ``truncate_deconvolve3d_cuda`` replace the type-1
+  passes ``_pass_a_kernel``, ``_pass_b_kernel`` and ``_pass_c_kernel``;
+- ``amplify_pad3d_cuda`` and ``extend_tiles3d_cuda`` replace the type-2
+  passes ``_dual_c_kernel``, ``_dual_b_kernel`` and ``_dual_a_kernel``.
+
+The kernels take rank 3 and float32. Each has a plain PyTorch version of
+the same function (any rank, float32 or float64): ``fold_plain``,
+``truncate_deconvolve_plain``, ``amplify_pad_plain`` and
+``extend_plain``. ``fft.planar_fft`` uses the plain versions for CPU
+tensors and for rank 2 (which the JAX package also keeps out of Pallas),
+and ``chip_smoke.py`` holds each kernel to its plain version on the card.
+Each CUDA entry point counts its launches in its ``launches`` attribute.
+What bounds the kernels (memory traffic) is in the source note of
+``csrc/mode3d.cu``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tensorflow_nufft_tpu_torch.kernels import _build
+from tensorflow_nufft_tpu_torch.kernels.binning import (
+    TileGeometry, extend_tiles, overlap_add)
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def mode_slots(n: int, nf: int, device) -> torch.Tensor:
+    """Fine-grid slot (i - n//2) mod nf of each CMCL mode index i."""
+    k = np.arange(n) - n // 2
+    return torch.as_tensor(np.mod(k, nf), device=device)
+
+
+def deconv_weights(plan, dim: int, dtype, device) -> torch.Tensor:
+    """The plan's deconvolution weights of axis ``dim``, cast once to
+    the working precision."""
+    w = plan.deconv_weights(dim).astype(_NP_DTYPE[dtype])
+    return torch.as_tensor(w, device=device)
+
+
+def _separable_weights(plan, dtype, device) -> torch.Tensor:
+    """[n0, n1, ...] outer product of the per-axis deconvolution
+    weights, in the kernels' product order ((w0 * w1) * w2)."""
+    w = None
+    for d in range(plan.rank):
+        wd = deconv_weights(plan, d, dtype, device)
+        w = wd if w is None else w[..., None] * wd
+    return w
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (any rank)
+# ---------------------------------------------------------------------------
+
+def fold_plain(tiles: torch.Tensor, geom: TileGeometry, batch: int
+               ) -> torch.Tensor:
+    """Tiles [*tiles, 2*batch, *ext] (row order (b, re/im)) -> complex
+    fine grid [batch, *fine]: the periodic overlap-add of the halos."""
+    fine = overlap_add(tiles, geom).reshape((batch, 2) + geom.fine_shape)
+    return torch.complex(fine[:, 0], fine[:, 1])
+
+
+def truncate_deconvolve_plain(spec: torch.Tensor, plan) -> torch.Tensor:
+    """Complex spectrum [batch, *fine] -> planar modes
+    [batch, *grid_shape, 2]: the spectrum at the mode slots, times the
+    separable deconvolution weights."""
+    real = spec.real.dtype
+    for d in range(plan.rank):
+        spec = spec.index_select(
+            1 + d, mode_slots(plan.grid_shape[d], plan.fine_shape[d],
+                              spec.device))
+    spec = spec * _separable_weights(plan, real, spec.device)
+    return torch.view_as_real(spec).contiguous()
+
+
+def amplify_pad_plain(modes: torch.Tensor, plan) -> torch.Tensor:
+    """Planar modes [batch, *grid_shape, 2] -> complex fine grid
+    [batch, *fine]: the weighted modes at their slots, zero elsewhere."""
+    batch = modes.shape[0]
+    z = torch.complex(modes[..., 0], modes[..., 1])
+    z = z * _separable_weights(plan, modes.dtype, modes.device)
+    fine = z.new_zeros((batch,) + tuple(plan.fine_shape))
+    index = [slice(None)]
+    for d in range(plan.rank):
+        shape = [1] * plan.rank
+        shape[d] = plan.grid_shape[d]
+        index.append(mode_slots(plan.grid_shape[d], plan.fine_shape[d],
+                                modes.device).reshape(shape))
+    fine[tuple(index)] = z
+    return fine
+
+
+def extend_plain(fine: torch.Tensor, geom: TileGeometry) -> torch.Tensor:
+    """Complex fine grid [batch, *fine] -> tiles [*tiles, 2*batch, *ext]
+    with periodic halos (channel 2b the real part, 2b + 1 the
+    imaginary)."""
+    batch = fine.shape[0]
+    x = torch.view_as_real(fine).movedim(-1, 1)
+    return extend_tiles(x.reshape((2 * batch,) + geom.fine_shape), geom)
+
+
+# ---------------------------------------------------------------------------
+# Hopper kernels (rank 3, float32)
+# ---------------------------------------------------------------------------
+
+def _run(name: str, *args) -> None:
+    lib = _build.library()
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, name)(*ptrs, stream)
+    _build.check(rc, f"{name} launch")
+
+
+def _rank3(kernel: str, geom: TileGeometry) -> None:
+    if geom.rank != 3:
+        raise NotImplementedError(f"the {kernel} kernel is rank 3 only")
+
+
+def _weights3(plan, device):
+    need = functools.partial(_build.require_cuda, "mode3d")
+    ws = [deconv_weights(plan, d, torch.float32, device) for d in range(3)]
+    for d, w in enumerate(ws):
+        need(w, f"w{d}", torch.float32, (plan.grid_shape[d],))
+    return ws
+
+
+def fold3d_cuda(tiles: torch.Tensor, geom: TileGeometry, batch: int
+                ) -> torch.Tensor:
+    """Hopper ``fold_plain``: tiles [*tiles, 2*batch, *ext] float32 ->
+    complex64 fine grid [batch, *fine]."""
+    _rank3("fold3d", geom)
+    _build.require_cuda("fold3d", tiles, "tiles", torch.float32,
+                        geom.tiles + (2 * batch,) + geom.ext)
+    fine = torch.empty((batch,) + geom.fine_shape, dtype=torch.complex64,
+                       device=tiles.device)
+    _run("tnt_fold3d", tiles, fine,
+         _build.mode_params(geom, (1, 1, 1), batch))
+    fold3d_cuda.launches += 1
+    return fine
+
+
+def truncate_deconvolve3d_cuda(spec: torch.Tensor, plan,
+                               geom: TileGeometry) -> torch.Tensor:
+    """Hopper ``truncate_deconvolve_plain``: complex64 spectrum
+    [batch, *fine] -> float32 planar modes [batch, *grid_shape, 2]."""
+    _rank3("truncate_deconvolve3d", geom)
+    batch = spec.shape[0]
+    _build.require_cuda("truncate_deconvolve3d", spec, "spectrum",
+                        torch.complex64, (batch,) + geom.fine_shape)
+    w0, w1, w2 = _weights3(plan, spec.device)
+    out = torch.empty((batch,) + tuple(plan.grid_shape) + (2,),
+                      dtype=torch.float32, device=spec.device)
+    _run("tnt_truncate_deconvolve3d", spec, w0, w1, w2, out,
+         _build.mode_params(geom, plan.grid_shape, batch))
+    truncate_deconvolve3d_cuda.launches += 1
+    return out
+
+
+def amplify_pad3d_cuda(modes: torch.Tensor, plan, geom: TileGeometry
+                       ) -> torch.Tensor:
+    """Hopper ``amplify_pad_plain``: float32 planar modes
+    [batch, *grid_shape, 2] -> complex64 fine grid [batch, *fine]."""
+    _rank3("amplify_pad3d", geom)
+    batch = modes.shape[0]
+    _build.require_cuda("amplify_pad3d", modes, "modes", torch.float32,
+                        (batch,) + tuple(plan.grid_shape) + (2,))
+    w0, w1, w2 = _weights3(plan, modes.device)
+    fine = torch.empty((batch,) + geom.fine_shape, dtype=torch.complex64,
+                       device=modes.device)
+    _run("tnt_amplify_pad3d", modes, w0, w1, w2, fine,
+         _build.mode_params(geom, plan.grid_shape, batch))
+    amplify_pad3d_cuda.launches += 1
+    return fine
+
+
+def extend_tiles3d_cuda(fine: torch.Tensor, geom: TileGeometry
+                        ) -> torch.Tensor:
+    """Hopper ``extend_plain``: complex64 fine grid [batch, *fine] ->
+    float32 tiles [*tiles, 2*batch, *ext]."""
+    _rank3("extend_tiles3d", geom)
+    batch = fine.shape[0]
+    _build.require_cuda("extend_tiles3d", fine, "fine grid",
+                        torch.complex64, (batch,) + geom.fine_shape)
+    tiles = torch.empty(geom.tiles + (2 * batch,) + geom.ext,
+                        dtype=torch.float32, device=fine.device)
+    _run("tnt_extend_tiles3d", fine, tiles,
+         _build.mode_params(geom, (1, 1, 1), batch))
+    extend_tiles3d_cuda.launches += 1
+    return tiles
+
+
+fold3d_cuda.launches = 0
+truncate_deconvolve3d_cuda.launches = 0
+amplify_pad3d_cuda.launches = 0
+extend_tiles3d_cuda.launches = 0

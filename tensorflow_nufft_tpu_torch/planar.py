@@ -1,14 +1,18 @@
 """Planar-real NUFFT API: complex values as a trailing (re, im) channel.
 
-Counterpart of ``tensorflow_nufft_tpu.planar`` for rank 2: ``nufft``,
-the dense oracle ``nudft`` and the planned ``PlannedNufft``. A complex
-tensor ``z`` is carried as ``to_planar(z)`` = real [..., 2].
+Counterpart of ``tensorflow_nufft_tpu.planar`` for ranks 2 and 3 (2D
+and 3D): ``nufft``, the dense oracle ``nudft`` and the planned
+``PlannedNufft``. A complex tensor ``z`` is carried as ``to_planar(z)`` =
+real [..., 2].
 
-Tensors stay on their device: on a CUDA tensor the spread/interp stages
-run the hand-written Hopper kernels (float32 only), on a CPU tensor
-their plain PyTorch versions. Forward only for now: the entry points
-raise ``NotImplementedError`` for inputs that require grad, rather than
-return a tensor without a graph.
+The entry points run on the CUDA card unless the caller asks for the
+CPU: tensors stay on their device, and numpy arrays or lists go to the
+card unless ``device=`` says otherwise (see ``utils.dtypes.
+entry_tensors``). On a CUDA tensor the spread/interp stages, and at rank
+3 the mode stages around cuFFT, run the hand-written Hopper kernels
+(float32 only); on a CPU tensor their plain PyTorch versions. Forward
+only for now: the entry points raise ``NotImplementedError`` for inputs
+that require grad, rather than return a tensor without a graph.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from tensorflow_nufft_tpu_torch.plan.plan import (
     PlanSpec, auto_max_batch_size, log_plan_summary, make_plan,
     warn_if_tol_clamped)
 from tensorflow_nufft_tpu_torch.utils.dtypes import (
-    FLOAT_DTYPES, as_tensor, dtype_name)
+    FLOAT_DTYPES, as_tensor, dtype_name, entry_tensors)
 
 
 def to_planar(z) -> torch.Tensor:
@@ -80,9 +84,10 @@ def _check_planar_inputs(source, points, name="source"):
 
 
 def _check_rank(rank: int) -> None:
-    if rank != 2:
+    if rank not in (2, 3):
         raise NotImplementedError(
-            f"only rank-2 transforms are ported so far, got rank {rank}.")
+            f"only rank-2 and rank-3 transforms are ported so far, got "
+            f"rank {rank}.")
 
 
 def _planar_shapes(source, points, grid_shape, transform_type):
@@ -117,15 +122,18 @@ def nufft(source,
           transform_type: str = "type_2",
           fft_direction: str = "forward",
           tol: float = 1e-6,
-          options: Optional[Options] = None) -> torch.Tensor:
-    """Planar NUFFT (rank 2).
+          options: Optional[Options] = None,
+          device=None) -> torch.Tensor:
+    """Planar NUFFT (rank 2 or 3).
 
     Args:
         source: planar complex: [..., M, 2] (type-1) or
             [...] + grid_shape + [2] (type-2), float32/float64.
-        points: [..., M, 2] same float dtype and device, radians in
+        points: [..., M, rank] same float dtype and device, radians in
             [-pi, pi] (wider per ``options.points_range``).
         grid_shape: the type-1 output grid shape.
+        device: where to run. By default tensors stay where they are and
+            numpy/list input goes to the CUDA card (raises without one).
 
     Returns:
         [...] + grid_shape + [2] (type-1) or [..., M, 2] (type-2), batch
@@ -136,8 +144,7 @@ def nufft(source,
         transform_type, VALID_TRANSFORM_TYPES, "transform_type")
     fft_direction = _validate_enum(
         fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
-    source = as_tensor(source)
-    points = as_tensor(points)
+    source, points = entry_tensors(source, points, device=device)
     _check_planar_inputs(source, points)
     _no_grad_support(source, points)
     rank = int(points.shape[-1])
@@ -169,15 +176,16 @@ def nudft(source,
           points,
           grid_shape=None,
           transform_type: str = "type_2",
-          fft_direction: str = "forward") -> torch.Tensor:
+          fft_direction: str = "forward",
+          device=None) -> torch.Tensor:
     """Planar dense NUDFT oracle (testing): O(M * prod(grid_shape))
-    work and memory, real arithmetic in the inputs' precision."""
+    work and memory, real arithmetic in the inputs' precision. Runs
+    where ``nufft`` would (``device``)."""
     transform_type = _validate_enum(
         transform_type, VALID_TRANSFORM_TYPES, "transform_type")
     fft_direction = _validate_enum(
         fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
-    source = as_tensor(source)
-    points = as_tensor(points)
+    source, points = entry_tensors(source, points, device=device)
     _check_planar_inputs(source, points)
     rank = int(points.shape[-1])
     grid_shape, elem_rank, out_elem_shape = _planar_shapes(
@@ -210,7 +218,8 @@ def nudft(source,
 
 
 class PlannedNufft:
-    """Planned planar NUFFT (rank 2): fixed points, repeated applies.
+    """Planned planar NUFFT (rank 2 or 3): fixed points, repeated
+    applies.
 
     Precomputes everything that depends only on the points: the
     two-float fold, the tile binning and the per-slot kernel windows
@@ -220,10 +229,11 @@ class PlannedNufft:
     stage.
 
     Args:
-        points: [M, 2] float32/float64 tensor or array.
+        points: [M, rank] float32/float64 tensor or array.
         grid_shape: the mode grid (type-1 output, type-2 input).
-        device: where the plan lives; defaults to the device of
-            ``points`` (CPU for numpy input).
+        device: where the plan lives. By default a tensor's own device,
+            and the CUDA card for numpy/list points (raises without
+            one); pass ``device="cpu"`` for the CPU.
     """
 
     def __init__(self, points, grid_shape, transform_type="type_2",
@@ -234,7 +244,7 @@ class PlannedNufft:
         fft_direction = _validate_enum(
             fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
         options = options or Options()
-        points = as_tensor(points, device=device)
+        points, = entry_tensors(points, device=device)
         _no_grad_support(points)
         if points.ndim != 2:
             raise ValueError(

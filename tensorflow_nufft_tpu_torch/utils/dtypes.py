@@ -1,4 +1,4 @@
-"""Dtype helpers of the planar API."""
+"""Dtype and device helpers of the planar API."""
 
 import numpy as np
 import torch
@@ -25,3 +25,28 @@ def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
         x = torch.as_tensor(x)
     return x.to(device=device if device is not None else x.device,
                 dtype=dtype if dtype is not None else x.dtype)
+
+
+def entry_tensors(*xs, device=None):
+    """The entry points' inputs as tensors, on one device.
+
+    With ``device``, every input moves there. Without it, tensors stay
+    on the device they are on (a CPU tensor is the caller asking for the
+    CPU), and other inputs (numpy arrays, lists) go to the device of the
+    first tensor among ``xs`` or, when there is none, to the CUDA card.
+    Non-tensor input with no tensor beside it and no ``device`` raises
+    on a machine without CUDA: it never falls back to the CPU.
+    """
+    if device is not None:
+        return tuple(as_tensor(x, device=torch.device(device)) for x in xs)
+    device = next((x.device for x in xs if isinstance(x, torch.Tensor)),
+                  None)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "non-tensor input (numpy array or list) goes to the CUDA "
+                "device by default, and torch sees no CUDA device; pass "
+                "device='cpu' (or CPU tensors) to run on the CPU")
+        device = torch.device("cuda")
+    return tuple(x if isinstance(x, torch.Tensor)
+                 else as_tensor(x, device=device) for x in xs)

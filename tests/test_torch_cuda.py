@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import tensorflow_nufft_tpu_torch as tnt
-from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft
+from tensorflow_nufft_tpu_torch.kernels import binning, interp, mode3d, spread
 from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
 from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
 
@@ -28,6 +29,15 @@ CASES = [
     ((64, 96), 2000, 1e-6, "auto", True),
     ((256, 256), 65536, 1e-6, "auto", False),
 ]
+# Rank 3: 2 x 2 x 2 tiles (every halo wraps) at both Horner widths and
+# the exp/sqrt branch, clustered points, and 4 x 4 x 2 tiles.
+CASES_3D = [
+    ((16, 16, 64), 3000, 1e-6, "auto", False),
+    ((16, 16, 64), 3000, 1e-3, "auto", False),
+    ((16, 16, 64), 3000, 1e-6, "direct", False),
+    ((16, 16, 64), 3000, 1e-6, "auto", True),
+    ((32, 32, 64), 20000, 1e-6, "auto", False),
+]
 
 
 @pytest.fixture
@@ -38,15 +48,18 @@ def dev():
 
 
 def _layout(grid, m, tol, dev, seed=0, kev="auto", clustered=False):
-    plan = make_plan(PlanSpec("type_1", "forward", 2, grid, "complex64",
+    rank = len(grid)
+    plan = make_plan(PlanSpec("type_1", "forward", rank, grid, "complex64",
                               tol, 1, kernel_evaluation_method=kev))
     rng = np.random.default_rng(seed)
     if clustered:
         # Two tight clusters: most tiles own one chunk of padded slots.
-        pts = np.array([[0.3, -2.0], [-1.1, 2.9]])[rng.integers(0, 2, m)]
-        pts = (pts + 0.05 * rng.standard_normal((m, 2))).astype(np.float32)
+        centers = np.array([[0.3, -2.0, 1.0], [-1.1, 2.9, -3.0]])[:, :rank]
+        pts = centers[rng.integers(0, 2, m)]
+        pts = (pts + 0.05 * rng.standard_normal((m, rank))).astype(
+            np.float32)
     else:
-        pts = rng.uniform(-np.pi, np.pi, (m, 2)).astype(np.float32)
+        pts = rng.uniform(-np.pi, np.pi, (m, rank)).astype(np.float32)
     geom, binned = bin_for_plan(torch.from_numpy(pts).to(dev), plan)
     kw = binning.build_weight_payload(binned, geom, plan)
     return plan, geom, binned, kw, binning.build_coords_payload(binned)
@@ -58,7 +71,7 @@ def _close(got, want):
     assert float((got - want).abs().max()) <= RTOL * peak
 
 
-@pytest.mark.parametrize("grid,m,tol,kev,clustered", CASES)
+@pytest.mark.parametrize("grid,m,tol,kev,clustered", CASES + CASES_3D)
 @pytest.mark.parametrize("b2", (2, 8))
 @pytest.mark.parametrize("source", ("planned", "unplanned"))
 def test_spread_kernel_matches_plain(dev, grid, m, tol, kev, clustered,
@@ -80,7 +93,7 @@ def test_spread_kernel_matches_plain(dev, grid, m, tol, kev, clustered,
     _close(got, want)
 
 
-@pytest.mark.parametrize("grid,m,tol,kev,clustered", CASES)
+@pytest.mark.parametrize("grid,m,tol,kev,clustered", CASES + CASES_3D)
 @pytest.mark.parametrize("b2", (2, 8))
 @pytest.mark.parametrize("source", ("planned", "unplanned"))
 def test_interp_kernel_matches_plain(dev, grid, m, tol, kev, clustered,
@@ -100,16 +113,45 @@ def test_interp_kernel_matches_plain(dev, grid, m, tol, kev, clustered,
     _close(got, want)
 
 
-def test_spread_kernel_is_deterministic(dev):
-    plan, geom, binned, kw, _ = _layout((256, 256), 65536, 1e-6, dev)
-    vals = torch.randn(2, 65536, device=dev)
+@pytest.mark.parametrize("grid,m", [((256, 256), 65536),
+                                    ((32, 32, 64), 20000)])
+def test_spread_kernel_is_deterministic(dev, grid, m):
+    plan, geom, binned, kw, coords = _layout(grid, m, 1e-6, dev)
+    vals = torch.randn(2, m, device=dev)
     values_pl = binning.build_values_payload(vals, binned)
-    first = spread.spread_planned_cuda(values_pl, binned.tile_bounds, geom,
-                                       plan, kw)
+    tb = binned.tile_bounds
+    first = spread.spread_planned_cuda(values_pl, tb, geom, plan, kw)
+    first_u = spread.spread_unplanned_cuda(values_pl, tb, geom, plan, coords)
     for _ in range(3):
-        again = spread.spread_planned_cuda(values_pl, binned.tile_bounds,
-                                           geom, plan, kw)
-        assert torch.equal(first, again)
+        assert torch.equal(
+            first, spread.spread_planned_cuda(values_pl, tb, geom, plan, kw))
+        assert torch.equal(first_u, spread.spread_unplanned_cuda(
+            values_pl, tb, geom, plan, coords))
+
+
+@pytest.mark.parametrize("grid,direction", [((16, 16, 64), "forward"),
+                                            ((32, 32, 64), "backward")])
+@pytest.mark.parametrize("batch", (1, 2))
+def test_mode3d_kernels_match_plain(dev, grid, direction, batch):
+    plan = make_plan(PlanSpec("type_1", direction, 3, grid, "complex64",
+                              1e-6, 1))
+    geom = binning.choose_geometry(plan.fine_shape, plan.width, 3000)
+    rng = np.random.default_rng(batch)
+    tiles = torch.from_numpy(rng.standard_normal(
+        geom.tiles + (2 * batch,) + geom.ext).astype(np.float32)).to(dev)
+    fine = mode3d.fold3d_cuda(tiles, geom, batch)
+    want = mode3d.fold_plain(tiles, geom, batch)
+    _close(torch.view_as_real(fine), torch.view_as_real(want))
+    spec = _fft(want, direction)
+    _close(mode3d.truncate_deconvolve3d_cuda(spec, plan, geom),
+           mode3d.truncate_deconvolve_plain(spec, plan))
+    modes = torch.from_numpy(rng.standard_normal(
+        (batch,) + grid + (2,)).astype(np.float32)).to(dev)
+    got = mode3d.amplify_pad3d_cuda(modes, plan, geom)
+    _close(torch.view_as_real(got),
+           torch.view_as_real(mode3d.amplify_pad_plain(modes, plan)))
+    assert torch.equal(mode3d.extend_tiles3d_cuda(spec, geom),
+                       mode3d.extend_plain(spec, geom))
 
 
 @pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
@@ -137,6 +179,43 @@ def test_transform_on_cuda_matches_cpu(dev, transform_type, points_range,
                           fft_direction="backward", options=kw["options"],
                           device=dev)
     _close(op(src.to(dev)).cpu(), want)
+
+
+@pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
+def test_transform_3d_on_cuda_matches_cpu_and_nudft(dev, transform_type):
+    grid, m = (16, 16, 64), 3000
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, 3)).astype(
+        np.float32))
+    shape = (2, m, 2) if transform_type == "type_1" else (2,) + grid + (2,)
+    src = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    kw = dict(grid_shape=grid if transform_type == "type_1" else None,
+              transform_type=transform_type)
+    want = tnt.planar.nufft(src, pts, **kw)
+    counters = (spread.spread_unplanned_cuda, interp.interp_unplanned_cuda,
+                mode3d.fold3d_cuda, mode3d.extend_tiles3d_cuda)
+    before = [c.launches for c in counters]
+    got = tnt.planar.nufft(src.to(dev), pts.to(dev), **kw)
+    assert got.device.type == "cuda"
+    assert sum(c.launches for c in counters) == sum(before) + 2
+    _close(got.cpu(), want)
+    op = tnt.PlannedNufft(pts, grid, transform_type=transform_type,
+                          device=dev)
+    _close(op(src.to(dev)).cpu(), want)
+    oracle = tnt.planar.nudft(src.double().to(dev), pts.double().to(dev),
+                              **kw)
+    err = float((got.double() - oracle).abs().max() / oracle.abs().max())
+    assert err <= 1e-3
+
+
+def test_numpy_input_runs_on_the_card(dev):
+    pts = np.random.default_rng(6).uniform(
+        -np.pi, np.pi, (500, 3)).astype(np.float32)
+    src = np.ones((500, 2), np.float32)
+    out = tnt.planar.nufft(src, pts, grid_shape=(16, 16, 64),
+                           transform_type="type_1")
+    assert out.device.type == "cuda"
+    assert tnt.PlannedNufft(pts, (16, 16, 64)).device.type == "cuda"
 
 
 def test_float64_on_cuda_raises(dev):

@@ -95,7 +95,8 @@ def test_planned_matches_jax(transform_type, batch):
     src = _source(transform_type, grid, m, (batch,), 4)
     jop = tfft.planar.PlannedNufft(pts, grid, transform_type=transform_type,
                                    options=PALLAS)
-    top = tnt.PlannedNufft(pts, grid, transform_type=transform_type)
+    top = tnt.PlannedNufft(pts, grid, transform_type=transform_type,
+                           device="cpu")
     assert _relerr(top(torch.from_numpy(src)), jop(src)) <= RTOL
     # The adjoint shares the plan: swapped type and direction.
     adj_src = _source(top.adjoint().transform_type, grid, m, (batch,), 5)
@@ -109,7 +110,7 @@ def test_planned_adjoint_identity():
     """<A x, y> == <x, A^H y> for the planned pair."""
     grid, m = (64, 64), 1500
     pts = _points(m, 6)
-    op = tnt.PlannedNufft(pts, grid, transform_type="type_2")
+    op = tnt.PlannedNufft(pts, grid, transform_type="type_2", device="cpu")
     x = torch.from_numpy(_source("type_2", grid, m, (1,), 7)).double()
     y = torch.from_numpy(_source("type_1", grid, m, (1,), 8)).double()
     ax = tnt.planar.from_planar(op(x.float()).double())
