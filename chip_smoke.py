@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (tensorflow_nufft_tpu_torch) on one GPU.
 
-Drives the port's main paths through the entry points a user calls, on
-the card, with no JAX:
+Drives the port's main paths (transforms and training) through the
+entry points a user calls, on the card, with no JAX:
 
 - 2D: bench.py's headline, 256^2 modes, 65,536 uniform points, tol 1e-6,
   seed 42;
@@ -42,11 +42,35 @@ Phases:
    torch.fft calls and the 3D plan build. Each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its float32 operations over
    67 TFLOP/s (H100 SXM data sheet), from this run's shapes.
+8. 3D planned at a mats-level size (128^3 modes, 200,000 points, where
+   the JAX plan keeps its dense matrices and runs TPU rows 3 and 12):
+   a planned type-1 and its adjoint with launch counting, held to the
+   unplanned transforms; the planned spread and interp held and timed.
+9. Training kernels: the derivative interp (phi' on one axis) on each
+   axis at the 2D headline and on axis 0 at the 3D headline, and the
+   unplanned spread at 6, 16 and 32 channels (2D) and 6 (3D), against
+   their plain versions, timed.
+10. 2D training: the headline points as a learnable [65536, 2] tensor
+   and a multicoil image x [8, 256, 256, 2]; loss 0.5 |A(x; k) - y|^2
+   with A the type-2 NUFFT and y made with a perturbed trajectory.
+   Step-1 gradients gated: err_total < 10 * tol against complex128
+   NUDFTs of the same formulas (x.grad on all modes, k.grad on a seeded
+   4096-point subset) and err_impl < max(tol, 4 * floor_f32) against
+   the float64 plain pipeline on the card; the planned form (x only,
+   through adjoint()); three Adam steps whose loss must fall; one
+   type-1-loss step (batch 3); launch counts and times per step.
+11. 2D spread-only: planar.interp and planar.spread on the 512^2 fine
+   grid, forward and backward, against the same calls on CPU tensors,
+   and the points gradient against a float64 central difference of the
+   plain ops at a few points.
+12. 3D training: one forward + backward of the type-2 loss at the 3D
+   headline (batch 1), gated on 4096-element subsets, timed; then the
+   3D spread-only ops as in 11, without the CPU comparison.
 
-8. With --profile only: for each transform and plan build of both
-   paths, the CUDA-event median, the device busy time per call from
-   torch.profiler (the sum of the device activities of 20 calls, / 20),
-   the idle share 1 - busy / event time, and the largest device items.
+With --profile: for each transform, plan build and training step, the
+CUDA-event median, the device busy time per call from torch.profiler
+(the sum of the device activities of 20 calls, / 20), the idle share
+1 - busy / event time, and the largest device items.
 
 Prints the kernels as one JSON line, then the nvidia-smi line, then, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -54,6 +78,7 @@ Prints the kernels as one JSON line, then the nvidia-smi line, then, last,
 Usage: python3 chip_smoke.py [--profile]
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -129,11 +154,15 @@ def tile_work(kind, planned, geom, plan, b2, m, used_slots):
     return nbytes, per_cell * b2 * m * w ** r + evals
 
 
-def rel_err(got, ref):
+def rel(got, ref, scale=None):
+    """max |got - ref| / (scale or max |ref|), in float64 (complex128 for
+    complex tensors)."""
     import torch
-    got = got.to(torch.complex128) if got.is_complex() else got.double()
-    ref = ref.to(got.dtype)
-    return float((got - ref).abs().max() / ref.abs().max())
+    dtype = (torch.complex128 if got.is_complex() or ref.is_complex()
+             else torch.float64)
+    got, ref = got.to(dtype), ref.to(dtype)
+    scale = float(ref.abs().max()) if scale is None else scale
+    return float((got - ref).abs().max()) / scale
 
 
 def inputs():
@@ -188,15 +217,16 @@ _PI = "tensorflow_nufft_tpu/kernels/pallas_interp.py"
 _PD = "tensorflow_nufft_tpu/kernels/pallas_dft.py"
 _CSRC = "tensorflow_nufft_tpu_torch/csrc/"
 KERNELS = {
-    # name: (wrapper, source, TPU kernel it replaces, rank)
+    # name: (wrapper, source, TPU kernel it replaces, the main-path phase
+    # whose launch count the JSON reports)
     "spread_planned": ("spread.spread_planned_cuda", "spread.cu",
-                       f"{_PS}:518", 2),
+                       f"{_PS}:518", "2d"),
     "spread_unplanned": ("spread.spread_unplanned_cuda", "spread.cu",
-                         f"{_PS}:582", 2),
+                         f"{_PS}:582", "2d"),
     "interp_planned": ("interp.interp_planned_cuda", "interp.cu",
-                       f"{_PI}:152", 2),
+                       f"{_PI}:152", "2d"),
     "interp_unplanned": ("interp.interp_unplanned_cuda", "interp.cu",
-                         f"{_PI}:218", 2),
+                         f"{_PI}:218", "2d"),
     # At the 3D headline the JAX PlannedNufft takes its binned level: its
     # dense kernel matrices (6.36e8 B) exceed their 256 MiB budget. It then
     # runs the axis-0-banded kernels, whose tile blocks the port's planned
@@ -205,20 +235,59 @@ KERNELS = {
     # (pallas_spread.py:1011, pallas_interp.py:373) serve 3D sizes whose
     # matrices fit.
     "spread3d_planned": ("spread.spread_planned_cuda", "spread.cu",
-                         f"{_PS}:693", 3),
+                         f"{_PS}:693", "3d"),
     "spread3d_unplanned": ("spread.spread_unplanned_cuda", "spread.cu",
-                           f"{_PS}:638", 3),
+                           f"{_PS}:638", "3d"),
     "interp3d_planned": ("interp.interp_planned_cuda", "interp.cu",
-                         f"{_PI}:281", 3),
+                         f"{_PI}:281", "3d"),
     "interp3d_unplanned": ("interp.interp_unplanned_cuda", "interp.cu",
-                           f"{_PI}:218", 3),
-    "fold3d": ("mode3d.fold3d_cuda", "mode3d.cu", f"{_PD}:346,362,384", 3),
+                           f"{_PI}:218", "3d"),
+    "fold3d": ("mode3d.fold3d_cuda", "mode3d.cu", f"{_PD}:346,362,384", "3d"),
     "truncate_deconvolve3d": ("mode3d.truncate_deconvolve3d_cuda",
-                              "mode3d.cu", f"{_PD}:346,362,384", 3),
+                              "mode3d.cu", f"{_PD}:346,362,384", "3d"),
     "amplify_pad3d": ("mode3d.amplify_pad3d_cuda", "mode3d.cu",
-                      f"{_PD}:222,246,261", 3),
+                      f"{_PD}:222,246,261", "3d"),
     "extend_tiles3d": ("mode3d.extend_tiles3d_cuda", "mode3d.cu",
-                       f"{_PD}:222,246,261", 3),
+                       f"{_PD}:222,246,261", "3d"),
+    # Training. The JAX plan spreads 2 * rank + B2 > 8 channels with its
+    # split-payload kernels: the resident one at the 2D headline for B2 =
+    # 6 (a batch-3 type-1 loss), the per-tile one for B2 = 16 (the source
+    # gradient of a batch-8 type-2 loss, in groups of 8). The spread-only
+    # ops' points gradients run _interp_kernel with its deriv_axis flag.
+    "spread_split_resident": ("spread.spread_unplanned_cuda", "spread.cu",
+                              f"{_PS}:898", "train2d_type1"),
+    "spread_split": ("spread.spread_unplanned_cuda", "spread.cu",
+                     f"{_PS}:956", "train2d"),
+    "interp_deriv": ("interp.interp_deriv_cuda", "interp.cu",
+                     f"{_PI}:218 (deriv_axis)", "spread_only_2d"),
+    "interp3d_deriv": ("interp.interp_deriv_cuda", "interp.cu",
+                       f"{_PI}:218 (deriv_axis)", "spread_only_3d"),
+    # At 128^3 modes and 200,000 points the JAX plan keeps its dense
+    # matrices (2.218e8 B) and runs the per-tile-grid mats kernels.
+    "spread3d_planned_mats": ("spread.spread_planned_cuda", "spread.cu",
+                              f"{_PS}:1011", "planned3d_mats"),
+    "interp3d_planned_mats": ("interp.interp_planned_cuda", "interp.cu",
+                              f"{_PI}:373", "planned3d_mats"),
+}
+# Kernels each main-path phase must launch (one entry per wrapper).
+PHASE_KERNELS = {
+    "2d": ("spread_planned", "spread_unplanned", "interp_planned",
+           "interp_unplanned"),
+    "3d": ("spread3d_planned", "spread3d_unplanned", "interp3d_planned",
+           "interp3d_unplanned", "fold3d", "truncate_deconvolve3d",
+           "amplify_pad3d", "extend_tiles3d"),
+    "train2d": ("spread_split", "interp_unplanned"),
+    "train2d_planned": ("spread_planned", "interp_planned"),
+    "train2d_type1": ("spread_split_resident", "interp_unplanned"),
+    "train3d": ("spread3d_unplanned", "interp3d_unplanned", "fold3d",
+                "truncate_deconvolve3d", "amplify_pad3d", "extend_tiles3d"),
+    "spread_only_2d": ("spread_unplanned", "interp_unplanned",
+                       "interp_deriv"),
+    "spread_only_3d": ("spread3d_unplanned", "interp3d_unplanned",
+                       "extend_tiles3d", "fold3d", "interp3d_deriv"),
+    "planned3d_mats": ("spread3d_planned_mats", "interp3d_planned_mats",
+                       "fold3d", "truncate_deconvolve3d", "amplify_pad3d",
+                       "extend_tiles3d"),
 }
 
 
@@ -238,16 +307,24 @@ def reset_launches():
         fn.launches = 0
 
 
-def read_launches(rank):
-    """Launch counts of the kernels of the rank-``rank`` path; fails if
-    one was launched no time."""
-    launches = {name: fn.launches for name, fn in wrappers().items()
-                if KERNELS[name][3] == rank}
-    log(f"{rank}D main-path launches: {launches}")
+def read_launches(phase):
+    """Launch counts of the kernels the main-path ``phase`` must run;
+    fails if one was launched no time."""
+    wrap = wrappers()
+    launches = {name: wrap[name].launches for name in PHASE_KERNELS[phase]}
+    log(f"{phase} main-path launches: {launches}")
     missing = [name for name, n in launches.items() if n < 1]
     if missing:
-        raise RuntimeError(f"{rank}D main path did not launch {missing}")
+        raise RuntimeError(f"{phase} main path did not launch {missing}")
     return launches
+
+
+def step_launches():
+    """Every wrapper's count (for per-step logs)."""
+    counts = {}
+    for fn in wrappers().values():
+        counts[fn.__name__] = fn.launches
+    return counts
 
 
 def hold(name, kernel, plain, results):
@@ -344,24 +421,24 @@ def kernel_phase(rng, points, dev):
     return results
 
 
-def exact_type1(points, z, dev):
+def exact2d_type2(f, x, sign):
+    """Type-2 NUDFT in complex128 of modes f [B, n, n] (CMCL order) at
+    points x [M, 2]: exp(sign i k.x) -> [B, M]."""
     import torch
-    x = torch.from_numpy(points.astype(np.float64)).to(dev)
-    c = torch.from_numpy(z.astype(np.complex128)).to(dev)
-    k = torch.arange(GRID, dtype=torch.float64, device=dev) - GRID // 2
-    ax = torch.exp(-1j * torch.outer(x[:, 0], k))
-    ay = torch.exp(-1j * torch.outer(x[:, 1], k))
-    return (ax * c[:, None]).T @ ay                     # [k0, k1]
+    k = torch.arange(GRID, dtype=torch.float64, device=x.device) - GRID // 2
+    ax = torch.exp(sign * 1j * torch.outer(x[:, 0], k))
+    ay = torch.exp(sign * 1j * torch.outer(x[:, 1], k))
+    return torch.sum(ax * (ay @ f.transpose(1, 2)), dim=-1)
 
 
-def exact_type2(points, modes, dev):
+def exact2d_type1(c, x, sign):
+    """Type-1 NUDFT in complex128 of point values c [B, M] at x [M, 2]
+    onto the n x n modes: exp(sign i k.x) -> [B, n, n]."""
     import torch
-    x = torch.from_numpy(points.astype(np.float64)).to(dev)
-    f = torch.from_numpy(modes.astype(np.complex128)).to(dev)
-    k = torch.arange(GRID, dtype=torch.float64, device=dev) - GRID // 2
-    ax = torch.exp(-1j * torch.outer(x[:, 0], k))
-    ay = torch.exp(-1j * torch.outer(x[:, 1], k))
-    return torch.sum(ax * (ay @ f.T), dim=1)            # [M]
+    k = torch.arange(GRID, dtype=torch.float64, device=x.device) - GRID // 2
+    ax = torch.exp(sign * 1j * torch.outer(x[:, 0], k))
+    ay = torch.exp(sign * 1j * torch.outer(x[:, 1], k))
+    return (ax[None] * c[..., None]).transpose(1, 2) @ ay
 
 
 def end_to_end(points, z, modes, dev):
@@ -384,7 +461,7 @@ def end_to_end(points, z, modes, dev):
     t2_unplanned = tnt.planar.nufft(modes_p, pts, transform_type="type_2",
                                     tol=TOL)
     torch.cuda.synchronize()
-    launches = read_launches(2)
+    launches = read_launches("2d")
 
     outs = {"t1_planned": t1_planned, "t1_unplanned": t1_unplanned,
             "t2_planned": t2_planned, "t2_unplanned": t2_unplanned}
@@ -397,8 +474,11 @@ def end_to_end(points, z, modes, dev):
         f"{float((t1_planned - t1_unplanned).abs().max()):.3e}, type-2 "
         f"{float((t2_planned - t2_unplanned).abs().max()):.3e}")
 
-    exact1 = exact_type1(points, z, dev)
-    exact2 = exact_type2(points, modes, dev)
+    x64 = torch.from_numpy(points.astype(np.float64)).to(dev)
+    exact1 = exact2d_type1(torch.from_numpy(z.astype(np.complex128)).to(
+        dev)[None], x64, -1.0)[0]
+    exact2 = exact2d_type2(torch.from_numpy(modes.astype(np.complex128)).to(
+        dev)[None], x64, -1.0)[0]
     # The port's own float64 plain pipeline (CPU tensors -> plain
     # versions), same tol: the implementation-error reference.
     pts64 = torch.from_numpy(points.astype(np.float64))
@@ -413,7 +493,7 @@ def end_to_end(points, z, modes, dev):
         got = from_planar(out).cpu()
         exact = (exact1 if name.startswith("t1") else exact2).cpu()
         ref = ref1 if name.startswith("t1") else ref2
-        err_total = rel_err(got, exact)
+        err_total = rel(got, exact)
         err_impl = float((got.to(torch.complex128) - ref).abs().max()
                          / exact.abs().max())
         log(f"{name}: err_total (vs exact NUDFT) {err_total:.3e} "
@@ -558,9 +638,76 @@ def kernel_phase_3d(points, dev):
     return results
 
 
+MATS_POINTS3 = 200_000
+
+
+def planned_mats_phase_3d(points3, dev):
+    """TPU rows 3 and 12: the planned rank-3 kernels at a size where the
+    JAX PlannedNufft keeps its dense kernel matrices (128^3 modes, the
+    first 200,000 headline points: 2.218e8 B of matrices under the 256
+    MiB budget, per the JAX package's mats_payload_bytes), so the TPU
+    runs _spread_kernel_mats and _interp_kernel_mats. Runs a planned
+    type-1 and its adjoint with launch counting, holds them to the
+    unplanned transforms, and holds and times the two kernels against
+    their plain versions."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+    rng = np.random.default_rng(SEED + 9)
+    m = MATS_POINTS3
+    pts = torch.from_numpy(points3[:m]).to(dev)
+    strengths = torch.from_numpy(rng.standard_normal((1, m, 2)).astype(
+        np.float32)).to(dev)
+    modes = torch.from_numpy(rng.standard_normal(
+        (1,) + GRID3 + (2,)).astype(np.float32)).to(dev)
+    reset_launches()
+    op = tnt.PlannedNufft(pts, GRID3, transform_type="type_1", tol=TOL)
+    t1 = op(strengths)
+    t2 = op.adjoint()(modes)
+    torch.cuda.synchronize()
+    launches = read_launches("planned3d_mats")
+    u1 = tnt.planar.nufft(strengths, pts, grid_shape=GRID3,
+                          transform_type="type_1", tol=TOL)
+    u2 = tnt.planar.nufft(modes, pts, fft_direction="backward", tol=TOL)
+    for name, got, want in (("type-1", t1, u1), ("type-2", t2, u2)):
+        err = rel(got, want)
+        log(f"planned3d_mats {name}: planned vs unplanned {err:.3e} "
+            f"(gate < {KERNEL_RTOL:g})")
+        if not err <= KERNEL_RTOL:
+            raise RuntimeError(f"planned3d_mats {name} disagrees with the "
+                               f"unplanned transform")
+    geom, binned, kw = op.geom, op.binned, op.weights
+    tb = binned.tile_bounds
+    used = int(tb[-1]) * geom.chunk
+    log(f"planned3d_mats geometry: tiles {geom.tiles} ext {geom.ext} chunk "
+        f"{geom.chunk} chunks {geom.num_chunks} (used {int(tb[-1])})")
+    values_pl = binning.build_values_payload(
+        strengths[0].t().contiguous(), binned)
+    tiles = torch.from_numpy(rng.standard_normal(
+        geom.tiles + (2,) + geom.ext).astype(np.float32)).to(dev)
+    results = {}
+    wrap = wrappers()
+    for name, kernel, plain, kind in (
+            ("spread3d_planned_mats",
+             functools.partial(wrap["spread3d_planned_mats"], values_pl, tb,
+                               geom, op.plan, kw),
+             functools.partial(spread.spread_tiles_plain, values_pl, tb,
+                               geom, op.plan, kw=kw), "spread"),
+            ("interp3d_planned_mats",
+             functools.partial(wrap["interp3d_planned_mats"], tiles, tb,
+                               geom, op.plan, kw),
+             functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
+                               op.plan, kw=kw), "interp")):
+        hold(name, kernel, plain, results)
+        time_pair(name, kernel, plain, results,
+                  tile_work(kind, True, geom, op.plan, 2, m, used))
+    return launches, results
+
+
 def plain_pipeline(source, points, plan):
     """The port's plain versions composed directly, with no dispatch: the
-    reference pipelines of the 3D gates. Runs on the tensors' device (the
+    reference pipelines of the 3D and training gates. source: [B, M, 2]
+    (type-1) or [B, *grid, 2] (type-2). Runs on the tensors' device (the
     card here), in their dtype."""
     from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft
     from tensorflow_nufft_tpu_torch.kernels import (binning, interp, mode3d,
@@ -570,16 +717,19 @@ def plain_pipeline(source, points, plan):
     kw = binning.build_weight_payload(binned, geom, plan)
     tb = binned.tile_bounds
     direction = plan.spec.fft_direction
+    batch = source.shape[0]
     if plan.spec.transform_type == "type_1":
-        values = binning.build_values_payload(source.t().contiguous(), binned)
+        values = binning.build_values_payload(
+            source.movedim(-1, 1).reshape(2 * batch, -1), binned)
         tiles = spread.spread_tiles_plain(values, tb, geom, plan, kw=kw)
-        spec = _fft(mode3d.fold_plain(tiles, geom, 1), direction)
-        return mode3d.truncate_deconvolve_plain(spec, plan)[0]
-    fine = _fft(mode3d.amplify_pad_plain(source[None], plan), direction)
+        spec = _fft(mode3d.fold_plain(tiles, geom, batch), direction)
+        return mode3d.truncate_deconvolve_plain(spec, plan)
+    fine = _fft(mode3d.amplify_pad_plain(source, plan), direction)
     tiles = mode3d.extend_plain(fine, geom)
     chunk_vals = interp.interp_tiles_plain(tiles, tb, geom, plan, kw=kw)
-    flat = chunk_vals.transpose(0, 1).reshape(2, geom.num_slots)
-    return binning.scatter_chunked(flat, binned).t()
+    flat = chunk_vals.transpose(0, 1).reshape(2 * batch, geom.num_slots)
+    return binning.scatter_chunked(flat, binned).reshape(
+        batch, 2, -1).movedim(1, -1)
 
 
 def mode_freqs(flat, dev):
@@ -590,17 +740,17 @@ def mode_freqs(flat, dev):
             - half).double()
 
 
-def exact_type1_subset(points, z, idx, dev):
-    """Forward type-1 NUDFT in complex128 at the flat mode indices
-    ``idx``, summed over all points in chunks."""
+def exact_type1_subset(points, z, idx, dev, sign=-1.0):
+    """Type-1 NUDFT (exp(sign i k.x), forward by default) in complex128 at
+    the flat mode indices ``idx``, summed over all points in chunks."""
     import torch
     k = mode_freqs(idx, dev)                                # [S, 3]
-    x = torch.from_numpy(points).to(dev).double()
-    c = torch.from_numpy(z).to(dev).to(torch.complex128)
+    x = torch.as_tensor(points, device=dev).double()
+    c = torch.as_tensor(z, device=dev).to(torch.complex128)
     out = torch.zeros(len(idx), dtype=torch.complex128, device=dev)
     for lo in range(0, len(x), 8192):
-        phase = x[lo:lo + 8192] @ k.T                       # [chunk, S]
-        out += c[lo:lo + 8192] @ torch.polar(torch.ones_like(phase), -phase)
+        phase = sign * (x[lo:lo + 8192] @ k.T)              # [chunk, S]
+        out += c[lo:lo + 8192] @ torch.polar(torch.ones_like(phase), phase)
     return out
 
 
@@ -608,8 +758,8 @@ def exact_type2_subset(points, modes, idx, direction_sign, dev):
     """Type-2 NUDFT in complex128 at the points ``idx``, summed over all
     modes in chunks."""
     import torch
-    x = torch.from_numpy(points).to(dev).double()[idx]     # [S, 3]
-    f = torch.from_numpy(modes).to(dev).to(torch.complex128).reshape(-1)
+    x = torch.as_tensor(points, device=dev).double()[idx]  # [S, 3]
+    f = torch.as_tensor(modes, device=dev).to(torch.complex128).reshape(-1)
     out = torch.zeros(len(idx), dtype=torch.complex128, device=dev)
     step = 16384
     for lo in range(0, f.numel(), step):
@@ -641,7 +791,7 @@ def end_to_end_3d(points, z, modes, dev):
     t2_unplanned = tnt.planar.nufft(modes_p, pts, transform_type="type_2",
                                     fft_direction="backward", tol=TOL)
     torch.cuda.synchronize()
-    launches = read_launches(3)
+    launches = read_launches("3d")
     outs = {"t1_planned": t1_planned, "t1_unplanned": t1_unplanned,
             "t2_planned": t2_planned, "t2_unplanned": t2_unplanned}
     for name, out in outs.items():
@@ -667,10 +817,11 @@ def end_to_end_3d(points, z, modes, dev):
         spec = dict(transform_type=ttype, fft_direction=direction, rank=3,
                     grid_shape=GRID3, tol=TOL, points_range=1)
         ref = from_planar(plain_pipeline(
-            src.double(), pts.double(),
-            make_plan(PlanSpec(dtype_name="complex128", **spec))))
+            src[None].double(), pts.double(),
+            make_plan(PlanSpec(dtype_name="complex128", **spec)))[0])
         f32 = from_planar(plain_pipeline(
-            src, pts, make_plan(PlanSpec(dtype_name="complex64", **spec))))
+            src[None], pts,
+            make_plan(PlanSpec(dtype_name="complex64", **spec)))[0])
         scale = float(ref.abs().max())
         refs[key] = (ref, scale)
         floors[key] = float((f32.to(torch.complex128) - ref).abs().max()
@@ -708,6 +859,466 @@ def transform_times_3d(op1, adj, pts, strengths, modes_p):
         else:
             log(f"time 3d_{name}: {ms:.4f} ms per transform, "
                 f"{NUM_POINTS3 / (ms * 1e-3):.4e} points/s")
+
+
+# ---------------------------------------------------------------------------
+# Training: autograd through the port on the card.
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 8      # coils of bench_suite's 2d_t2_512_radial_b8 cases
+TYPE1_BATCH = 3      # B2 = 6: the JAX plan's resident split spread
+# rad: std of the trajectory error the data carry. Large enough that the
+# residual is as large as A x, so that the transform's error relative to
+# A x is not magnified in the gradients' relative error.
+SHIFT = 5e-2
+LR_X, LR_K = 1e-2, 2e-4    # Adam step sizes of the image and trajectory
+STEP_REPS = 5
+FD_POINTS = 3
+FD_STEP = 1e-5       # rad
+FD_RTOL = 1e-4
+
+
+def kernel_phase_train(rng, points, points3, dev):
+    """The training kernels against their plain versions: the derivative
+    interp on each axis and the unplanned spread at 6, 16 and 32 channels
+    at the 2D headline geometry; at 3D, the derivative interp on axis 0
+    and the spread at 6 channels."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+    from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    wrap = wrappers()
+    results = {}
+    for rank, pts, grid in ((2, points, (GRID, GRID)), (3, points3, GRID3)):
+        # The transform plan; the spread-only ops' plan of its fine grid
+        # has the same kernel, fine grid and geometry.
+        plan = make_plan(PlanSpec("type_1", "forward", rank, grid,
+                                  "complex64", TOL, 1))
+        geom, binned = bin_for_plan(torch.from_numpy(pts).to(dev), plan)
+        coords = binning.build_coords_payload(binned)
+        tb = binned.tile_bounds
+        m = pts.shape[0]
+        used = int(tb[-1]) * geom.chunk
+        tiles = torch.from_numpy(rng.standard_normal(
+            geom.tiles + (2,) + geom.ext).astype(np.float32)).to(dev)
+        name = "interp_deriv" if rank == 2 else "interp3d_deriv"
+        for axis in range(rank if rank == 2 else 1):
+            kernel = functools.partial(wrap[name], tiles, tb, geom, plan,
+                                       coords, axis)
+            plain = functools.partial(interp.interp_tiles_plain, tiles, tb,
+                                      geom, plan, coords=coords,
+                                      deriv_axis=axis)
+            hold(name, kernel, plain, results)
+        time_pair(name, kernel, plain, results,
+                  tile_work("interp", False, geom, plan, 2, m, used))
+        for b2 in ((6, 16, 32) if rank == 2 else (6,)):
+            values_pl = binning.build_values_payload(torch.from_numpy(
+                rng.standard_normal((b2, m)).astype(np.float32)).to(dev),
+                binned)
+            kernel = functools.partial(spread.spread_unplanned_cuda,
+                                       values_pl, tb, geom, plan, coords)
+            plain = functools.partial(spread.spread_tiles_plain, values_pl,
+                                      tb, geom, plan, coords=coords)
+            work = tile_work("spread", False, geom, plan, b2, m, used)
+            group = spread.launch_shape(geom, b2, plan.width)[0]
+            log(f"spread rank {rank} B2 {b2}: channel groups of {group} "
+                f"on blockIdx.y")
+            if rank == 2 and b2 in (6, 16):
+                name = "spread_split_resident" if b2 == 6 else "spread_split"
+                hold(name, kernel, plain, results)
+                time_pair(name, kernel, plain, results, work)
+            else:
+                # Held, and timed beside its bound; not a main-path shape.
+                extra = {}
+                hold("spread_unplanned", kernel, plain, extra)
+                ms = cuda_ms(kernel)
+                plain_ms = cuda_ms(plain, reps=3, warmup=1)
+                log(f"time spread rank {rank} B2 {b2}: kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, bound "
+                    f"{bound(*work)[0]:.4f} ms")
+                if rank == 2:
+                    res = results["spread_split"]
+                    res["max_abs_err"] = max(res["max_abs_err"],
+                                             extra["spread_unplanned"][
+                                                 "max_abs_err"])
+    return results
+
+
+def mode_weights(grid, dtype, dev):
+    """[rank, *grid] mode index k_a of each mode along each axis."""
+    import torch
+    axes = [torch.arange(n, dtype=dtype, device=dev) - n // 2 for n in grid]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"))
+
+
+def plain_loss_grads(source, points, data, transform_type):
+    """0.5 |A source - data|^2 with A the forward NUFFT of
+    ``transform_type``, and its gradients, through the plain pipelines
+    (no autograd, no dispatch): the formulas of the port's backward, as
+    the reference of the err_impl gates. Returns (r, g_source, g_points)."""
+    import torch
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    rank = points.shape[1]
+    grid = (tuple(source.shape[1:-1]) if transform_type == "type_2"
+            else tuple(data.shape[1:-1]))
+    dname = "complex128" if source.dtype == torch.float64 else "complex64"
+
+    def plan(ttype, direction):
+        return make_plan(PlanSpec(ttype, direction, rank, grid, dname, TOL,
+                                  1))
+    adjoint = "type_1" if transform_type == "type_2" else "type_2"
+    r = plain_pipeline(source, points, plan(transform_type, "forward")) \
+        - data
+    g_source = plain_pipeline(r, points, plan(adjoint, "backward"))
+    if transform_type == "type_2":
+        w_grid, v_pts, direction = source, r, "forward"
+    else:
+        w_grid, v_pts, direction = r, source, "backward"
+    batch = w_grid.shape[0]
+    kw = mode_weights(grid, w_grid.dtype, w_grid.device)
+    aux = plain_pipeline(
+        (w_grid[:, None] * kw[None, ..., None]).reshape(
+            (batch * rank,) + grid + (2,)), points,
+        plan("type_2", direction)).reshape(batch, rank, -1, 2)
+    vr, vi = v_pts[..., 0], v_pts[..., 1]
+    if transform_type == "type_2":
+        per = vi[:, None] * aux[..., 0] - vr[:, None] * aux[..., 1]
+    else:
+        per = vr[:, None] * aux[..., 1] - vi[:, None] * aux[..., 0]
+    return r, g_source, -per.sum(dim=0).t()           # forward: sign -1
+
+
+def impl_gates(label, grads, source, points, data, transform_type):
+    """err_impl of the port's gradients against the float64 plain
+    pipeline on the card, gated at max(tol, 4 * floor_f32), floor_f32
+    being the float32 plain pipeline's error against it. Returns the
+    float64 gradients."""
+    _, *ref = plain_loss_grads(source.double(), points.double(),
+                               data.double(), transform_type)
+    _, *f32 = plain_loss_grads(source, points, data, transform_type)
+    failed = []
+    for what, got, want, low in zip(("source", "points"), grads, ref, f32):
+        floor = rel(low, want)
+        err = rel(got, want)
+        gate = max(TOL, 4 * floor)
+        log(f"{label} {what} grad: err_impl (vs f64 plain pipeline) "
+            f"{err:.3e} (gate < {gate:.3e}; floor_f32 {floor:.3e})")
+        if not err < gate:
+            failed.append(what)
+    if failed:
+        raise RuntimeError(f"{label}: err_impl gates failed: {failed}")
+    return ref
+
+
+def timed_step(label, fn, reps=STEP_REPS):
+    """CUDA-event median of one forward + backward."""
+    ms = cuda_ms(fn, reps=reps, warmup=1)
+    log(f"time {label} (forward + backward): {ms:.4f} ms")
+    return ms
+
+
+def train_phase_2d(points, dev):
+    """Trajectory learning at the 2D headline: a multicoil image x [8,
+    256, 256, 2] and the points k [65536, 2], both learnable; loss 0.5
+    |A(x; k) - y|^2, A the type-2 NUFFT, y made with a perturbed
+    trajectory. Gates the step-1 gradients, times the steps, takes three
+    Adam steps; then the planned form and a type-1 loss."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.planar import from_planar
+    grid = (GRID, GRID)
+    rng = np.random.default_rng(SEED + 2)
+    x0 = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH,) + grid + (2,)).astype(np.float32)).to(dev)
+    k0 = torch.from_numpy(points).to(dev)
+    k_true = k0 + torch.from_numpy(
+        (SHIFT * rng.standard_normal(points.shape)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = tnt.planar.nufft(x0, k_true, tol=TOL)
+
+    def loss_fn(x, k):
+        return 0.5 * (tnt.planar.nufft(x, k, tol=TOL) - y).square().sum()
+
+    x = x0.clone().requires_grad_()
+    k = k0.clone().requires_grad_()
+    reset_launches()
+    loss_fn(x, k).backward()
+    torch.cuda.synchronize()
+    launches = {"train2d": read_launches("train2d")}
+    log(f"train2d type-2 step launches: {step_launches()}")
+    gx, gk = x.grad.detach(), k.grad.detach()
+    for name, g in (("x.grad", gx), ("k.grad", gk)):
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"train2d {name} has non-finite values")
+
+    # Exact: complex128 NUDFTs of the same formulas, x.grad on every
+    # mode, k.grad on a seeded subset of points.
+    k64 = k0.double()
+    f = from_planar(x0).to(torch.complex128)
+    r = exact2d_type2(f, k64, -1.0) - from_planar(y).to(torch.complex128)
+    gx_exact = exact2d_type1(r, k64, 1.0)
+    idx = torch.from_numpy(np.sort(np.random.default_rng(SEED + 4).choice(
+        NUM_POINTS, SUBSET, replace=False))).to(dev)
+    kw = mode_weights(grid, torch.float64, dev)
+    gk_exact = torch.stack([torch.sum(torch.imag(
+        torch.conj(r[:, idx]) * exact2d_type2(f * kw[a], k64[idx], -1.0)),
+        dim=0) for a in range(2)], dim=-1)
+    err_x = rel(from_planar(gx).to(torch.complex128), gx_exact)
+    err_k = rel(gk[idx], gk_exact)
+    log(f"train2d step 1: err_total x.grad (vs exact NUDFT) {err_x:.3e}, "
+        f"k.grad ({SUBSET}-point subset) {err_k:.3e} (gate < {10 * TOL:g})")
+    ref = impl_gates("train2d step 1", (gx, gk), x0, k0, y, "type_2")
+    # The float64 plain pipeline against the same exact values: what the
+    # algorithm itself reaches at this tol.
+    log(f"train2d f64 plain pipeline: err_total x.grad "
+        f"{rel(from_planar(ref[0]), gx_exact):.3e}, k.grad "
+        f"{rel(ref[1][idx], gk_exact):.3e}")
+    if not (err_x < 10 * TOL and err_k < 10 * TOL):
+        raise RuntimeError("train2d: err_total gates failed")
+
+    # The planned form: gradient for x only, through adjoint().
+    op = tnt.PlannedNufft(k0, grid, transform_type="type_2", tol=TOL)
+
+    def planned_loss(x):
+        return 0.5 * (op(x) - y).square().sum()
+    xq = x0.clone().requires_grad_()
+    reset_launches()
+    planned_loss(xq).backward()
+    torch.cuda.synchronize()
+    launches["train2d_planned"] = read_launches("train2d_planned")
+    err_p = rel(from_planar(xq.grad).to(torch.complex128), gx_exact)
+    err_pi = rel(xq.grad, ref[0])
+    log(f"train2d planned x.grad: err_total {err_p:.3e} (gate < "
+        f"{10 * TOL:g}), err_impl {err_pi:.3e}, vs unplanned "
+        f"{rel(xq.grad, gx):.3e}")
+    if not err_p < 10 * TOL:
+        raise RuntimeError("train2d planned: err_total gate failed")
+
+    steps = {
+        "train2d_type2_step": lambda: loss_fn(x, k).backward(),
+        "train2d_type2_x_only_step": lambda: loss_fn(x, k0).backward(),
+        "train2d_planned_step": lambda: planned_loss(xq).backward(),
+    }
+    times = {name: timed_step(name, fn) for name, fn in steps.items()}
+
+    # Three Adam steps on (x, k).
+    x = x0.clone().requires_grad_()
+    k = k0.clone().requires_grad_()
+    opt = torch.optim.Adam([{"params": [x], "lr": LR_X},
+                            {"params": [k], "lr": LR_K}])
+    losses = []
+    for step in range(3):
+        opt.zero_grad()
+        loss = loss_fn(x, k)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        log(f"train2d Adam step {step + 1}: loss {losses[-1]:.6e}")
+    if not losses[2] < losses[0]:
+        raise RuntimeError(f"train2d: the loss did not fall: {losses}")
+
+    # One step of a type-1 loss (batch 3: B2 = 6 channels).
+    c0 = torch.from_numpy(rng.standard_normal(
+        (TYPE1_BATCH, NUM_POINTS, 2)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        target = tnt.planar.nufft(c0, k_true, grid_shape=grid,
+                                  transform_type="type_1", tol=TOL)
+
+    def loss1(c, k):
+        return 0.5 * (tnt.planar.nufft(c, k, grid_shape=grid,
+                                       transform_type="type_1", tol=TOL)
+                      - target).square().sum()
+    c = c0.clone().requires_grad_()
+    k = k0.clone().requires_grad_()
+    reset_launches()
+    loss1(c, k).backward()
+    torch.cuda.synchronize()
+    launches["train2d_type1"] = read_launches("train2d_type1")
+    log(f"train2d type-1 step launches: {step_launches()}")
+    impl_gates("train2d type-1 step", (c.grad, k.grad), c0, k0, target,
+               "type_1")
+    times["train2d_type1_step"] = timed_step(
+        "train2d_type1_step", lambda: loss1(c, k).backward())
+    cases = dict(steps, train2d_type1_step=lambda: loss1(c, k).backward())
+    return launches, cases
+
+
+def train_phase_3d(points3, dev):
+    """One forward + backward of the type-2 loss at the 3D headline
+    (128^3 modes, 800,000 points, batch 1) with respect to x and k.
+    err_total gates on 4096-element subsets take the port's residual r
+    as given (an exact residual needs all points against all 2.1M
+    modes): x.grad against the exact adjoint of r at 4096 modes, k.grad
+    against the exact formula at 4096 points."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.planar import from_planar
+    rng = np.random.default_rng(SEED + 5)
+    x0 = torch.from_numpy(rng.standard_normal(
+        (1,) + GRID3 + (2,)).astype(np.float32)).to(dev)
+    k0 = torch.from_numpy(points3).to(dev)
+    k_true = k0 + torch.from_numpy((SHIFT * rng.standard_normal(
+        points3.shape)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = tnt.planar.nufft(x0, k_true, tol=TOL)
+    x = x0.clone().requires_grad_()
+    k = k0.clone().requires_grad_()
+
+    def step():
+        out = tnt.planar.nufft(x, k, tol=TOL)
+        (0.5 * (out - y).square().sum()).backward()
+        return out
+    reset_launches()
+    out = step()
+    torch.cuda.synchronize()
+    launches = read_launches("train3d")
+    log(f"train3d step launches: {step_launches()}")
+    gx, gk = x.grad.detach(), k.grad.detach()
+    if not (bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gk).all())):
+        raise RuntimeError("train3d: non-finite gradients")
+    r = from_planar(out.detach() - y)[0].to(torch.complex128)    # [M]
+    sub = np.random.default_rng(SEED + 6)
+    idx_modes = torch.from_numpy(np.sort(sub.choice(
+        int(np.prod(GRID3)), SUBSET, replace=False))).to(dev)
+    idx_pts = torch.from_numpy(np.sort(sub.choice(
+        NUM_POINTS3, SUBSET, replace=False))).to(dev)
+    gx_exact = exact_type1_subset(points3, r, idx_modes, dev, sign=1.0)
+    f = from_planar(x0)[0].to(torch.complex128)
+    kw = mode_weights(GRID3, torch.float64, dev)
+    gk_exact = torch.stack([torch.imag(torch.conj(r[idx_pts])
+                                       * exact_type2_subset(
+                                           points3, f * kw[a], idx_pts,
+                                           -1.0, dev))
+                            for a in range(3)], dim=-1)
+    ref = impl_gates("train3d", (gx, gk), x0, k0, y, "type_2")
+    scale_x = float(from_planar(ref[0]).abs().max())
+    err_x = float((from_planar(gx)[0].reshape(-1)[idx_modes]
+                   .to(torch.complex128) - gx_exact).abs().max()) / scale_x
+    err_k = rel(gk[idx_pts], gk_exact, float(ref[1].abs().max()))
+    log(f"train3d: err_total x.grad ({SUBSET} modes, given r) {err_x:.3e}, "
+        f"k.grad ({SUBSET} points, given r) {err_k:.3e} (gate < "
+        f"{10 * TOL:g})")
+    if not (err_x < 10 * TOL and err_k < 10 * TOL):
+        raise RuntimeError("train3d: err_total gates failed")
+    timed_step("train3d_type2_step", step, reps=3)
+    return launches, {"train3d_type2_step": step}
+
+
+def plain_spread_only(source, points, plan):
+    """A spread-only op through the plain versions (any dtype, no
+    dispatch, no autograd): source [B, M, 2] -> [B, *grid, 2] (type-1)
+    or [B, *grid, 2] -> [B, M, 2] (type-2)."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import (binning, interp, mode3d,
+                                                    spread)
+    from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
+    geom, binned = bin_for_plan(points, plan)
+    coords = binning.build_coords_payload(binned)
+    tb = binned.tile_bounds
+    batch = source.shape[0]
+    if plan.spec.transform_type == "type_1":
+        values = binning.build_values_payload(
+            source.movedim(-1, 1).reshape(2 * batch, -1), binned)
+        tiles = spread.spread_tiles_plain(values, tb, geom, plan,
+                                          coords=coords)
+        out = torch.view_as_real(mode3d.fold_plain(tiles, geom, batch))
+    else:
+        tiles = mode3d.extend_plain(torch.view_as_complex(
+            source.contiguous()), geom)
+        chunk_vals = interp.interp_tiles_plain(tiles, tb, geom, plan,
+                                               coords=coords)
+        flat = chunk_vals.transpose(0, 1).reshape(2 * batch, -1)
+        out = binning.scatter_chunked(flat, binned).reshape(
+            batch, 2, -1).movedim(1, -1)
+    return out * plan.kernel_scale
+
+
+def fd_gate(label, k_grad, points, terms):
+    """The points gradient against a float64 central difference of the
+    plain ops at FD_POINTS seeded points, each alone (a point's gradient
+    depends on no other point). terms: (type, source, cotangent, grid)
+    of the summed losses sum(cotangent * op(source[:, j], k_j))."""
+    import torch
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    rank = points.shape[1]
+    js = np.random.default_rng(SEED + 7).choice(points.shape[0], FD_POINTS,
+                                                replace=False)
+    worst = 0.0
+    for j in js:
+        for a in range(rank):
+            fd = 0.0
+            for ttype, src, ct, grid in terms:
+                plan = make_plan(PlanSpec(ttype, "forward", rank, grid,
+                                          "complex128", TOL, 1,
+                                          spread_only=True))
+                s = src.double() if ttype == "type_2" else \
+                    src[:, j:j + 1].double()
+                c = ct[:, j:j + 1].double() if ttype == "type_2" else \
+                    ct.double()
+                for sign in (1.0, -1.0):
+                    kj = points[j:j + 1].double().clone()
+                    kj[0, a] += sign * FD_STEP
+                    fd += sign * float(torch.sum(
+                        c * plain_spread_only(s, kj, plan))) / (2 * FD_STEP)
+            worst = max(worst, abs(fd - float(k_grad[j, a])))
+    scale = float(k_grad.abs().max())
+    log(f"{label} k.grad vs f64 central difference at {FD_POINTS} points: "
+        f"max |diff| {worst:.3e} (gate < {FD_RTOL:g} * {scale:.3e})")
+    if not worst < FD_RTOL * scale:
+        raise RuntimeError(f"{label}: points gradient misses its finite "
+                           f"difference")
+
+
+def spread_only_phase(points, grid, dev, cpu_reference):
+    """tnt.planar.interp and tnt.planar.spread on the fine grid ``grid``
+    with ``points``, forward and backward (source and points). Gates:
+    finite values; with ``cpu_reference``, the same calls on CPU tensors
+    (the plain versions) to 1e-5 of the peak; the points gradients
+    against a float64 finite difference of the plain ops."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    rank = len(grid)
+    phase = f"spread_only_{rank}d"
+    rng = np.random.default_rng(SEED + 8)
+    m = points.shape[0]
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+    host = (torch.from_numpy(points), draw((1,) + grid + (2,)),
+            draw((1, m, 2)), draw((1, m, 2)), draw((1,) + grid + (2,)))
+    placed = {"cpu": host, dev: tuple(t.to(dev) for t in host)}
+
+    def run(device):
+        pts, g, w, c, wg = placed[device]
+        k, gg, cc = (t.clone().requires_grad_() for t in (pts, g, c))
+        v = tnt.planar.interp(gg, k, tol=TOL)
+        f = tnt.planar.spread(cc, k, grid, tol=TOL)
+        (torch.sum(v * w) + torch.sum(f * wg)).backward()
+        return [t.detach() for t in (v, f, gg.grad, cc.grad, k.grad)]
+    reset_launches()
+    got = run(dev)
+    torch.cuda.synchronize()
+    launches = read_launches(phase)
+    for name, t in zip(("interp", "spread", "grid.grad", "values.grad",
+                        "k.grad"), got):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"{phase} {name} has non-finite values")
+    if cpu_reference:
+        want = run("cpu")
+        for name, a, b in zip(("interp", "spread", "grid.grad",
+                               "values.grad", "k.grad"), got, want):
+            err = rel(a.cpu(), b)
+            log(f"{phase} {name}: vs CPU plain versions {err:.3e} "
+                f"(gate < {KERNEL_RTOL:g})")
+            if not err <= KERNEL_RTOL:
+                raise RuntimeError(f"{phase} {name} disagrees with the "
+                                   f"plain versions")
+    pts, g, w, c, wg = placed[dev]
+    fd_gate(phase, got[4], pts, (("type_2", g, w, grid),
+                                 ("type_1", c, wg, grid)))
+    timed_step(f"{phase}_step", lambda: run(dev), reps=3)
+    return launches, {f"{phase}_step": lambda: run(dev)}
 
 
 def profile_phase(label, cases, calls=20):
@@ -757,18 +1368,40 @@ def main():
     torch.cuda.empty_cache()
     launches3, op1, adj, pts, strengths, modes_p = end_to_end_3d(
         points3, z3, modes3, dev)
-    launches.update(launches3)
+    phases = {"2d": launches, "3d": launches3}
     transform_times_3d(op1, adj, pts, strengths, modes_p)
-    if "--profile" in sys.argv:
+    profile = "--profile" in sys.argv
+    if profile:
         profile_phase("3d", transform_cases(
             op1, adj, pts, strengths, modes_p, GRID3,
             dict(fft_direction="backward")))
+    del op1, adj, pts, strengths, modes_p
+    torch.cuda.empty_cache()
+    phases["planned3d_mats"], mats_results = planned_mats_phase_3d(points3,
+                                                                   dev)
+    results.update(mats_results)
+    torch.cuda.empty_cache()
+    results.update(kernel_phase_train(rng, points, points3, dev))
+    train_launches, cases = train_phase_2d(points, dev)
+    phases.update(train_launches)
+    phases["spread_only_2d"], only2 = spread_only_phase(
+        points, (2 * GRID, 2 * GRID), dev, cpu_reference=True)
+    cases.update(only2)
+    if profile:
+        profile_phase("train2d", cases)
+    del cases, only2
+    torch.cuda.empty_cache()
+    phases["train3d"], cases3 = train_phase_3d(points3, dev)
+    phases["spread_only_3d"], only3 = spread_only_phase(
+        points3, GEOMETRY3["fine_shape"], dev, cpu_reference=False)
+    if profile:
+        profile_phase("train3d", dict(cases3, **only3))
     kernels = []
-    for name, (_, source, replaces, _) in KERNELS.items():
+    for name, (_, source, replaces, phase) in KERNELS.items():
         res = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": _CSRC + source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": phases[phase][name],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": None})

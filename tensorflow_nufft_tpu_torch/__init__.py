@@ -6,13 +6,19 @@ run as hand-written CUDA kernels on CUDA tensors (``csrc/``, built with
 nvcc at first use) and as their plain PyTorch versions on CPU tensors.
 Everything else (fold, binning, the FFT) is plain torch, mirroring the
 JAX package module for module. Numpy input goes to the CUDA card unless
-the caller passes ``device=``.
+the caller passes ``device=``. ``planar.nufft``, ``planar.interp`` and
+``planar.spread`` are differentiable in source and points,
+``PlannedNufft`` in its source.
 
 Typical usage::
 
     import tensorflow_nufft_tpu_torch as tnt
     op = tnt.planar.PlannedNufft(points, (128, 128, 128), "type_1")
     modes = op(strengths)          # [B, M, 2] -> [B, 128, 128, 128, 2]
+
+    k = points.requires_grad_()    # trajectory learning
+    loss = tnt.planar.nufft(image, k).square().sum()
+    loss.backward()                # image.grad, k.grad
 """
 
 from tensorflow_nufft_tpu_torch.__about__ import __version__

@@ -8,8 +8,11 @@
 //     kernel weights; here kPlanned = true;
 //   tensorflow_nufft_tpu/kernels/pallas_interp.py:_interp_kernel
 //     (unplanned, ranks 2 and 3: in-kernel Horner or exp/sqrt on the
-//     two-float coordinates; here kPlanned = false; its deriv_axis
-//     variant is not ported yet).
+//     two-float coordinates; here kPlanned = false). Its deriv_axis flag,
+//     the backward kernel of the spread-only ops, is the runtime
+//     EsKernel::deriv_axis: that axis's window holds phi' (direct
+//     exp/sqrt, es_eval_deriv) and the other axes keep phi. Planned
+//     windows never carry phi', as in the TPU path.
 // Where the TPU plan cannot keep its dense matrices (the 3D headline)
 // it runs pallas_interp.py:_interp_kernel_banded instead, which reads
 // the same tile blocks; the planned kernel serves that path too (the
@@ -88,7 +91,7 @@ __global__ void interp_kernel(const int* __restrict__ tile_bounds,
         } else {
           s[d] = tnt::es_window(coords[(size_t)d * g.slots + slot],
                                 coords[(size_t)(kRank + d) * g.slots + slot],
-                                origin[d], k, wt[d]);
+                                origin[d], k, wt[d], d == k.deriv_axis);
         }
       }
       for (int b = 0; b < nc; ++b) {

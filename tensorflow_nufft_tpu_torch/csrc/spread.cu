@@ -2,20 +2,28 @@
 // per-tile halo-padded blocks [num_tiles, B2, *ext] (float32, rank 2 or
 // 3).
 //
-// Replaces four Pallas TPU kernels:
+// Replaces six Pallas TPU kernels:
 //   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_resident_mats
 //   and :_spread_kernel_mats (the rank-3 per-tile grid): precomputed
 //     kernel weights; here kPlanned = true;
 //   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_resident
 //   and :_spread_kernel (the rank-3 per-tile grid with its sub-chunk
 //     fold): Horner or exp/sqrt evaluated in-kernel on the two-float
-//     coordinates; here kPlanned = false.
-// The TPU needs the per-tile-grid twins because VMEM cannot hold the
-// whole tile array; on Hopper every block owns one tile at any rank, so
-// one kernel serves all four. Where the TPU plan cannot keep its dense
-// matrices (the 3D headline) it runs :_spread_kernel_banded instead,
-// whose tile blocks are the same; the planned kernel computes them on
-// the unbanded geometry (the axis-0 band itself is not ported).
+//     coordinates; here kPlanned = false;
+//   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_resident_split
+//   and :_spread_kernel_split: the same with separate coords and values
+//     payloads, which the TPU takes for channel groups wider than one
+//     8-row combined payload (2 * rank + B2 > 8: the source and points
+//     gradients of training); here kPlanned = false at any B2, the
+//     channel groups on blockIdx.y, the last one partial.
+// The TPU needs the per-tile-grid and split twins because VMEM cannot
+// hold the whole tile array and a DMA moves 8-row blocks; on Hopper
+// every block owns one tile at any rank and reads coords and values
+// separately, so one kernel serves all six. Where the TPU plan cannot
+// keep its dense matrices (the 3D headline) it runs
+// :_spread_kernel_banded instead, whose tile blocks are the same; the
+// planned kernel computes them on the unbanded geometry (the axis-0 band
+// itself is not ported).
 //
 // Design. One thread block per (tile, channel group) owns the tile's
 // [group, *ext] halo block in dynamic shared memory (20.7 KB per channel

@@ -1,7 +1,7 @@
 // Shared definitions of the spread and interp kernels: the launch
 // parameter layout (filled by kernels/_build.py:kernel_params), the tile
-// geometry at rank 2 or 3, and the ES kernel evaluation on one slot's
-// two-float coordinate.
+// geometry at rank 2 or 3, and the ES kernel (and its derivative)
+// evaluated on one slot's two-float coordinate.
 //
 // Arithmetic note: the kernel argument z = ((i0 + j) - s) - lo and the
 // Horner argument t = (z*z)*c2 - 1 are written with __fadd_rn/__fsub_rn/
@@ -20,11 +20,12 @@ constexpr int kMaxHorner = 32;  // fit_horner_coeffs: degree <= 24
 constexpr int kMaxRank = 3;
 
 // Integer launch parameters, in this order (kernels/_build.py). Per-axis
-// entries past the rank are 1.
+// entries past the rank are 1. kDerivAxis is the interp's phi' axis, -1
+// for none.
 enum IParam {
   kRank, kNt0, kNt1, kNt2, kTile0, kTile1, kTile2, kPad, kE0, kE1, kE2,
   kChunk, kBatch2, kGroup, kSlots, kWidth, kNHorner, kThreads, kSmem,
-  kNumIParams
+  kDerivAxis, kNumIParams
 };
 // Float launch parameters; the Horner coefficients follow kHorner0.
 enum FParam { kHalfWidth, kC2, kBeta, kC, kHorner0 };
@@ -43,6 +44,7 @@ struct Geometry {
 
 struct EsKernel {
   int width;
+  int deriv_axis;    // axis whose window holds phi' (-1: none)
   int n_horner;      // 0: direct exp/sqrt evaluation
   float half_width;
   float c2;          // 2 / half_width^2
@@ -68,6 +70,7 @@ inline Geometry geometry_from(const int* ip) {
 inline EsKernel es_from(const int* ip, const float* fp) {
   EsKernel k;
   k.width = ip[kWidth];
+  k.deriv_axis = ip[kDerivAxis];
   k.n_horner = ip[kNHorner];
   k.half_width = fp[kHalfWidth];
   k.c2 = fp[kC2];
@@ -114,13 +117,30 @@ __device__ __forceinline__ float es_eval(float z, const EsKernel& k) {
   return expf(__fmul_rn(k.beta, sqrtf(arg)));
 }
 
+// phi'(z) = -beta c z exp(beta r) / r, r = sqrt(max(1 - c z^2, 1e-12)),
+// evaluated directly (the Horner fit approximates phi, not phi'), in the
+// operation order of pallas_spread.py:es_kernel_matrix_deriv and the
+// plain version (torch_ops.es_kernel_deriv); exactly zero outside the
+// support.
+__device__ __forceinline__ float es_eval_deriv(float z, const EsKernel& k) {
+  if (!(fabsf(z) < k.half_width)) return 0.0f;
+  const float arg =
+      fmaxf(__fsub_rn(1.0f, __fmul_rn(__fmul_rn(k.c, z), z)), 1e-12f);
+  const float r = sqrtf(arg);
+  return __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(-k.beta, k.c), z),
+                             expf(__fmul_rn(k.beta, r))),
+                   r);
+}
+
 // One axis of a slot's kernel window: writes w[0..width) =
-// phi(((i0 + j) - s) - lo) with s = hi - origin, i0 = ceil(s - w/2), and
-// returns i0 (clamped so far-out or NaN coordinates give an out-of-range
-// start instead of an undefined conversion). Padded slots carry
-// hi = SENTINEL, so their window starts far outside the tile.
+// phi(((i0 + j) - s) - lo) (phi' with `deriv`) with s = hi - origin,
+// i0 = ceil(s - w/2), and returns i0 (clamped so far-out or NaN
+// coordinates give an out-of-range start instead of an undefined
+// conversion). Padded slots carry hi = SENTINEL, so their window starts
+// far outside the tile.
 __device__ __forceinline__ int es_window(float hi, float lo, float origin,
-                                         const EsKernel& k, float* w) {
+                                         const EsKernel& k, float* w,
+                                         bool deriv = false) {
   const float s = __fsub_rn(hi, origin);
   const float f0 = ceilf(__fsub_rn(s, k.half_width));
 #pragma unroll
@@ -128,7 +148,7 @@ __device__ __forceinline__ int es_window(float hi, float lo, float origin,
     if (j < k.width) {
       const float z =
           __fsub_rn(__fsub_rn(__fadd_rn(f0, (float)j), s), lo);
-      w[j] = es_eval(z, k);
+      w[j] = deriv ? es_eval_deriv(z, k) : es_eval(z, k);
     }
   }
   return (int)fminf(fmaxf(f0, -1.0e8f), 1.0e8f);

@@ -35,17 +35,12 @@ def _fft(x: torch.Tensor, fft_direction: str) -> torch.Tensor:
     return torch.fft.ifftn(x, dim=dims, norm="forward")   # unnormalized
 
 
-def _kernels(x: torch.Tensor, plan) -> bool:
-    """Whether the stage runs the Hopper kernels: rank 3 on the card."""
-    return x.is_cuda and plan.rank == 3
-
-
 def dft_truncate_deconvolve_tiled(tiles: torch.Tensor, plan,
                                   geom: TileGeometry, batch: int
                                   ) -> torch.Tensor:
     """Type-1 post-stage: tiles [*tiles, 2*batch, *ext] (row order
     (b, re/im)) -> modes [batch, *grid_shape, 2]."""
-    if _kernels(tiles, plan):
+    if mode3d.on_kernels(tiles, plan.rank):
         spec = _fft(mode3d.fold3d_cuda(tiles, geom, batch),
                     plan.spec.fft_direction)
         return mode3d.truncate_deconvolve3d_cuda(spec, plan, geom)
@@ -58,7 +53,7 @@ def amplify_pad_dft_tiled(modes: torch.Tensor, plan, geom: TileGeometry
                           ) -> torch.Tensor:
     """Type-2 pre-stage: modes [batch, *grid_shape, 2] -> tiles
     [*tiles, 2*batch, *ext] ready for the interp kernel."""
-    if _kernels(modes, plan):
+    if mode3d.on_kernels(modes, plan.rank):
         fine = _fft(mode3d.amplify_pad3d_cuda(modes, plan, geom),
                     plan.spec.fft_direction)
         return mode3d.extend_tiles3d_cuda(fine, geom)

@@ -159,17 +159,18 @@ def _per_axis(values, rank: int):
 
 
 def kernel_params(geom, plan, batch2: int, group: int, threads: int,
-                  smem: int):
+                  smem: int, deriv_axis: int = -1):
     """The (int, float) host parameter arrays of a spread or interp
     launch, in the order of ``IParam``/``FParam`` in
-    ``csrc/tnt_common.cuh``."""
+    ``csrc/tnt_common.cuh``. ``deriv_axis`` (-1 for none) is the axis
+    whose window the unplanned interp evaluates as phi'."""
     horner = tuple(plan.horner) if plan.horner is not None else ()
     rank = geom.rank
     ints = ((rank,) + _per_axis(geom.tiles, rank)
             + _per_axis(geom.tile, rank) + (geom.pad,)
             + _per_axis(geom.ext, rank)
             + (geom.chunk, batch2, group, geom.num_slots, plan.width,
-               len(horner), threads, smem))
+               len(horner), threads, smem, deriv_axis))
     hw = float(plan.half_width)
     floats = (hw, 2.0 / (hw * hw), plan.beta, plan.c) + horner
     # ctypes.c_float rounds each double to float32, as the plain

@@ -24,7 +24,7 @@ grid).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -279,13 +279,16 @@ def slot_origins(tile_bounds: torch.Tensor, geom: TileGeometry,
 
 
 def slot_weights(coords: torch.Tensor, tile_bounds: torch.Tensor,
-                 geom: TileGeometry, plan) -> KernelWeights:
+                 geom: TileGeometry, plan,
+                 deriv_axis: Optional[int] = None) -> KernelWeights:
     """Per-slot kernel windows from the coords payload.
 
     Axis d's window of a slot starts at i0 = ceil(s - w/2), where
     s = hi - origin is the coordinate in extended-tile units, and holds
     phi(((i0 + j) - s) - lo) for j < w: the nonzero entries of the TPU
     path's dense kernel matrices, evaluated by the same arithmetic.
+    On ``deriv_axis`` the window holds phi' instead (the spread-only
+    points gradients; ``pallas_spread.kernel_matrices_from``).
     """
     rank = geom.rank
     origins = slot_origins(tile_bounds, geom, coords.dtype)
@@ -298,7 +301,7 @@ def slot_weights(coords: torch.Tensor, tile_bounds: torch.Tensor,
         i0 = torch.ceil(s - hw)
         z = ((i0[:, None] + j[None, :]) - s[:, None]) \
             - coords[rank + d][:, None]
-        weights.append(es_kernel_for(z, plan))
+        weights.append(es_kernel_for(z, plan, deriv=d == deriv_axis))
         i0 = torch.nan_to_num(i0, nan=-_START_LIMIT)
         starts.append(torch.clamp(i0, -_START_LIMIT, _START_LIMIT)
                       .to(torch.int32))

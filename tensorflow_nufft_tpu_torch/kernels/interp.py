@@ -11,10 +11,12 @@ and 3). Two entry points launch the hand-written Hopper kernel of
   it runs ``_interp_kernel_banded`` on the same tile blocks instead.
 - ``interp_unplanned_cuda`` replaces ``pallas_interp._interp_kernel``
   (ranks 2 and 3): windows evaluated in the kernel from the coords
-  payload (its ``deriv_axis`` variant, used by the spread-only
-  gradients, is not ported yet).
+  payload.
+- ``interp_deriv_cuda`` is the same kernel with ``_interp_kernel``'s
+  ``deriv_axis`` flag: the window of one axis holds the kernel's
+  derivative phi' (the points gradients of the spread-only ops).
 
-``interp_tiles_plain`` is the plain PyTorch version of both. Outputs are
+``interp_tiles_plain`` is the plain PyTorch version of all three. Outputs are
 [num_chunks, B2, chunk] in slot order, as the TPU kernels write them;
 ``binning.scatter_chunked`` brings them to point order. Each CUDA entry
 point counts its launches in its ``launches`` attribute.
@@ -54,7 +56,8 @@ def launch_shape(geom: TileGeometry, batch2: int):
 
 
 def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
-            kw: Optional[KernelWeights], coords: Optional[torch.Tensor]):
+            kw: Optional[KernelWeights], coords: Optional[torch.Tensor],
+            deriv_axis: int = -1):
     rank = geom.rank
     if rank not in (2, 3):
         raise NotImplementedError("the interp kernel takes ranks 2 and 3")
@@ -73,7 +76,7 @@ def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
     lib = _build.library()
     group, threads, smem = launch_shape(geom, batch2)
     ints, floats = _build.kernel_params(geom, plan, batch2, group, threads,
-                                        smem)
+                                        smem, deriv_axis)
     # Zeros: chunks past tile_bounds[-1] are never written by the kernel.
     out = torch.zeros((geom.num_chunks, batch2, geom.chunk),
                       dtype=torch.float32, device=tiles.device)
@@ -106,23 +109,38 @@ def interp_unplanned_cuda(tiles: torch.Tensor, tile_bounds: torch.Tensor,
     return out
 
 
+def interp_deriv_cuda(tiles: torch.Tensor, tile_bounds: torch.Tensor,
+                      geom: TileGeometry, plan, coords: torch.Tensor,
+                      axis: int) -> torch.Tensor:
+    """Hopper interp with the kernel's derivative phi' on ``axis`` (phi
+    on the others), evaluated in the kernel from the coords payload."""
+    if not 0 <= axis < geom.rank:
+        raise ValueError(f"deriv axis {axis} out of range for rank "
+                         f"{geom.rank}")
+    out = _launch(tiles, tile_bounds, geom, plan, None, coords, axis)
+    interp_deriv_cuda.launches += 1
+    return out
+
+
 interp_planned_cuda.launches = 0
 interp_unplanned_cuda.launches = 0
+interp_deriv_cuda.launches = 0
 
 
 def interp_tiles_plain(tiles: torch.Tensor, tile_bounds: torch.Tensor,
                        geom: TileGeometry, plan,
                        kw: Optional[KernelWeights] = None,
-                       coords: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       coords: Optional[torch.Tensor] = None,
+                       deriv_axis: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch interp, the same function as the kernel: tiles
     [*tiles, B2, *ext] -> [num_chunks, B2, chunk], from the planned
-    windows ``kw`` or from ``coords``. Any float dtype. Per leading-axis
-    window offset, one [B2, slots, width] gather contracted with the
-    last axis's window, then weighted by the leading-axis product, as
-    the kernel does."""
+    windows ``kw`` or from ``coords`` (with phi' on ``deriv_axis``).
+    Any float dtype. Per leading-axis window offset, one [B2, slots,
+    width] gather contracted with the last axis's window, then weighted
+    by the leading-axis product, as the kernel does."""
     if kw is None:
-        kw = binning.slot_weights(coords, tile_bounds, geom, plan)
+        kw = binning.slot_weights(coords, tile_bounds, geom, plan,
+                                  deriv_axis)
     batch2 = tiles.shape[geom.rank]
     ext, rank, width = geom.ext, geom.rank, plan.width
     cells = int(np.prod(ext))

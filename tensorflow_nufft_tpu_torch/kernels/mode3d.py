@@ -60,6 +60,13 @@ def _separable_weights(plan, dtype, device) -> torch.Tensor:
     return w
 
 
+def on_kernels(x: torch.Tensor, rank: int) -> bool:
+    """Whether a mode-stage step on ``x`` runs the Hopper kernels: rank 3
+    on the card (rank 2 stays in plain torch, as the JAX package keeps
+    it in XLA)."""
+    return x.is_cuda and rank == 3
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (any rank)
 # ---------------------------------------------------------------------------

@@ -12,7 +12,15 @@ and 3). Two entry points launch the hand-written Hopper kernel of
   the unbanded geometry.
 - ``spread_unplanned_cuda`` replaces ``pallas_spread._spread_kernel_
   resident`` (rank 2) and ``_spread_kernel`` (rank 3): windows evaluated
-  in the kernel from the coords payload.
+  in the kernel from the coords payload. It also replaces the wide-
+  channel pair ``_spread_kernel_resident_split`` and
+  ``_spread_kernel_split``, which the TPU takes once a channel group no
+  longer fits one 8-row payload beside its coordinates (2 * rank + B2 >
+  8: training's source and points gradients): coords and values are
+  separate payloads here at every width, and channels beyond one
+  block's group go to the launch grid's second dimension, the last
+  group partial (``launch_shape``). The split pair's slot-order input
+  (``values_slots``, of ``PlannedNufft.normal``) is not ported yet.
 
 ``spread_tiles_plain`` is the plain PyTorch version of both; the
 dispatcher uses it for CPU tensors and ``chip_smoke.py`` holds the kernel

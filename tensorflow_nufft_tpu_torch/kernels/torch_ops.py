@@ -144,6 +144,21 @@ def es_kernel(z: torch.Tensor, beta: float, c: float,
     return torch.where(inside, val, torch.zeros_like(z))
 
 
+def es_kernel_deriv(z: torch.Tensor, beta: float, c: float,
+                    half_width: float) -> torch.Tensor:
+    """The kernel's derivative phi'(z) = -beta c z exp(beta r) / r with
+    r = sqrt(max(1 - c z^2, 1e-12)), zero outside |z| < half_width, in
+    the JAX package's operation order (``es_kernel_matrix_deriv``).
+    Always direct: the Horner fit approximates phi, not phi'."""
+    beta, c, half_width = (_const(v, z) for v in (beta, c, half_width))
+    inside = torch.abs(z) < half_width
+    arg = torch.where(inside, torch.clamp(1.0 - c * z * z, min=1e-12),
+                      torch.ones_like(z))
+    r = torch.sqrt(arg)
+    val = (-beta * c) * z * torch.exp(beta * r) / r
+    return torch.where(inside, val, torch.zeros_like(z))
+
+
 def es_kernel_horner(z: torch.Tensor, horner, half_width: float
                      ) -> torch.Tensor:
     """Horner evaluation of the plan's fitted kernel polynomial
@@ -163,11 +178,15 @@ def es_kernel_horner(z: torch.Tensor, horner, half_width: float
     return torch.where(inside, acc, torch.zeros_like(acc))
 
 
-def es_kernel_for(z: torch.Tensor, plan) -> torch.Tensor:
+def es_kernel_for(z: torch.Tensor, plan, deriv: bool = False
+                  ) -> torch.Tensor:
     """Fitted Horner polynomial when the plan has one and ``z`` is
-    float32, direct exp/sqrt otherwise."""
+    float32, direct exp/sqrt otherwise; with ``deriv``, the direct
+    derivative phi'."""
+    np_dt = np.float32 if z.dtype == torch.float32 else np.float64
+    consts = (np_dt(plan.beta), np_dt(plan.c), np_dt(plan.half_width))
+    if deriv:
+        return es_kernel_deriv(z, *consts)
     if plan.horner is not None and z.dtype == torch.float32:
         return es_kernel_horner(z, plan.horner, plan.half_width)
-    np_dt = np.float32 if z.dtype == torch.float32 else np.float64
-    return es_kernel(z, np_dt(plan.beta), np_dt(plan.c),
-                     np_dt(plan.half_width))
+    return es_kernel(z, *consts)

@@ -1,21 +1,34 @@
 """Planar-real core NUFFT: one point set, an inner batch of transforms.
 
-Counterpart of ``tensorflow_nufft_tpu.ops.planar_core._execute_planar``
-(the tiled, non-spread-only branches). Every tensor is real with a
-trailing (re, im) channel; the spread/interp stages are real-linear and
-channel-independent, so the channel folds into the batch axis with row
-order (b, re/im). Forward only: autograd is not ported yet.
+Counterpart of ``tensorflow_nufft_tpu.ops.planar_core``. Every tensor is
+real with a trailing (re, im) channel; the spread/interp stages are
+real-linear and channel-independent, so the channel folds into the batch
+axis with row order (b, re/im).
+
+Gradients (``torch.autograd.Function``s, the JAX package's custom VJPs):
+planar tensors are real, so PyTorch's gradient is JAX's real transpose,
+the planar form of the complex adjoint. The source gradient of a
+transform is the adjoint transform (swapped type and direction); its
+points gradient is a type-2 of the mode-weighted grid side over
+``batch * rank`` transforms, contracted with the point side. Both are
+written with the differentiable cores themselves, so a transform has a
+second derivative. The spread-only ops' source gradient is the swapped
+op and their points gradient the derivative-kernel interp
+(``dispatch.interp_deriv``), which has no gradient of its own.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from tensorflow_nufft_tpu_torch.fft.planar_fft import (
     amplify_pad_dft_tiled, dft_truncate_deconvolve_tiled)
 from tensorflow_nufft_tpu_torch.kernels import binning, dispatch
 from tensorflow_nufft_tpu_torch.kernels.torch_ops import (
     fold_and_rescale_split)
+from tensorflow_nufft_tpu_torch.ops.core import _mode_grid, _replace
 from tensorflow_nufft_tpu_torch.plan.plan import (
     PlanSpec, check_fine_grid_size, make_plan)
 
@@ -49,20 +62,147 @@ def _execute_planar(source: torch.Tensor, points: torch.Tensor,
     """source: [B, M, 2] (type-1) or [B, *grid, 2] (type-2); points:
     [M, rank]. Returns the planar output."""
     spec = plan.spec
-    if spec.spread_only:
-        raise NotImplementedError("spread-only ops are not ported yet")
+    source = source.contiguous()
     batch = source.shape[0]
     check_fine_grid_size(plan, 2 * batch)    # planar: re/im channel pair
     geom, binned = bin_for_plan(points, plan)
     if spec.transform_type == "type_1":
+        if spec.spread_only:
+            fine = dispatch.spread(_fold(source), binned, geom, plan)
+            return fine * plan.kernel_scale
         tiles = dispatch.spread_tiled(_fold(source), binned, geom, plan)
         return dft_truncate_deconvolve_tiled(tiles, plan, geom, batch)
+    if spec.spread_only:
+        values = dispatch.interp(source, binned, geom, plan)
+        return _unfold(values, batch) * plan.kernel_scale
     tiles = amplify_pad_dft_tiled(source, plan, geom)
     values = dispatch.interp_tiled(tiles, binned, geom, plan)
     return _unfold(values, batch)
 
 
+def _swapped_type(spec: PlanSpec) -> str:
+    return "type_2" if spec.transform_type == "type_1" else "type_1"
+
+
+def _swapped_direction(spec: PlanSpec) -> str:
+    return "backward" if spec.fft_direction == "forward" else "forward"
+
+
+class _NufftCorePlanar(torch.autograd.Function):
+    """The transform, with the JAX package's ``_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, source, points, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(source, points)
+        return _execute_planar(source, points, make_plan(spec))
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        source, points = ctx.saved_tensors
+        spec = ctx.spec
+        grad_source = grad_points = None
+        if ctx.needs_input_grad[0]:
+            # Real transpose == adjoint: swap type AND direction.
+            grad_source = nufft_core_planar(
+                cotangent, points,
+                _replace(spec, transform_type=_swapped_type(spec),
+                         fft_direction=_swapped_direction(spec)))
+        if ctx.needs_input_grad[1]:
+            grad_points = _points_grad(source, points, cotangent, spec)
+        return grad_source, grad_points, None
+
+
+def _points_grad(source, points, cotangent, spec: PlanSpec):
+    """Points gradient via mode-weighted type-2 transforms:
+      type-2: grad[m, ax] = Re(conj(ct_m) i s t2_s(F k_ax)_m)
+                          = s (ct_i aux_r - ct_r aux_i)
+      type-1: grad[m, ax] = Re(i s c_m conj(t2_{-s}(ct k_ax)_m))
+                          = s (c_r aux_i - c_i aux_r)
+    """
+    rank, grid_shape = spec.rank, spec.grid_shape
+    sign = -1.0 if spec.fft_direction == "forward" else 1.0
+    if spec.transform_type == "type_2":
+        w_grid, v_pts = source, cotangent       # [B, *grid, 2], [B, M, 2]
+        aux_direction = spec.fft_direction
+    else:
+        w_grid, v_pts = cotangent, source
+        aux_direction = _swapped_direction(spec)
+    batch = w_grid.shape[0]
+    weighted = torch.stack(
+        [w_grid * _mode_grid(grid_shape, ax, w_grid.dtype,
+                             w_grid.device)[..., None]
+         for ax in range(rank)], dim=1)               # [B, rank, *grid, 2]
+    aux = nufft_core_planar(
+        weighted.reshape((batch * rank,) + grid_shape + (2,)), points,
+        _replace(spec, transform_type="type_2", fft_direction=aux_direction,
+                 spread_only=False))
+    aux = aux.reshape(batch, rank, -1, 2)               # [B, rank, M, 2]
+    vr, vi = v_pts[..., 0], v_pts[..., 1]
+    aux_r, aux_i = aux[..., 0], aux[..., 1]
+    if spec.transform_type == "type_2":
+        per = vi[:, None] * aux_r - vr[:, None] * aux_i  # [B, rank, M]
+    else:
+        per = vr[:, None] * aux_i - vi[:, None] * aux_r
+    return sign * per.sum(dim=0).t()                    # [M, rank]
+
+
 def nufft_core_planar(source: torch.Tensor, points: torch.Tensor,
                       spec: PlanSpec) -> torch.Tensor:
-    """Inner-batched planar NUFFT (one point set, B transforms)."""
-    return _execute_planar(source, points, make_plan(spec))
+    """Inner-batched planar NUFFT (one point set, B transforms),
+    differentiable in ``source`` and ``points``."""
+    return _NufftCorePlanar.apply(source, points, spec)
+
+
+class _SpreadOnlyCorePlanar(torch.autograd.Function):
+    """Standalone spread/interp, with the JAX package's
+    ``_spread_only_planar_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, source, points, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(source, points)
+        return _execute_planar(source, points, make_plan(spec))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, cotangent):
+        source, points = ctx.saved_tensors
+        spec = ctx.spec
+        grad_source = grad_points = None
+        if ctx.needs_input_grad[0]:
+            # Real and phase-free: the plain transpose is the swapped op.
+            grad_source = spread_only_core_planar(
+                cotangent, points,
+                _replace(spec, transform_type=_swapped_type(spec)))
+        if ctx.needs_input_grad[1]:
+            grad_points = _spread_only_points_grad(source, points,
+                                                   cotangent, spec)
+        return grad_source, grad_points, None
+
+
+def _spread_only_points_grad(source, points, cotangent, spec: PlanSpec):
+    """Derivative-kernel interp of the grid side, per axis, contracted
+    channel-wise with the point side."""
+    plan = make_plan(spec)
+    if spec.transform_type == "type_2":
+        grid_side, pts_side = source, cotangent    # [B, *grid, 2], [B, M, 2]
+    else:
+        grid_side, pts_side = cotangent, source
+    batch = grid_side.shape[0]
+    geom, binned = bin_for_plan(points, plan)
+    tiles = dispatch.extend(grid_side, geom)
+    grads = []
+    for d in range(plan.rank):
+        aux = _unfold(dispatch.interp_deriv(tiles, binned, geom, plan, d),
+                      batch)                             # [B, M, 2]
+        factor = -plan.kernel_scale * plan.fine_shape[d] / (2.0 * np.pi)
+        grads.append((pts_side * aux).sum(dim=(0, 2)) * factor)
+    return torch.stack(grads, dim=-1).to(points.dtype)
+
+
+def spread_only_core_planar(source: torch.Tensor, points: torch.Tensor,
+                            spec: PlanSpec) -> torch.Tensor:
+    """Inner-batched planar spread (type-1) or interp (type-2) with
+    ``spec.spread_only``, differentiable in ``source`` and ``points``."""
+    return _SpreadOnlyCorePlanar.apply(source, points, spec)

@@ -1,18 +1,22 @@
 """Planar-real NUFFT API: complex values as a trailing (re, im) channel.
 
 Counterpart of ``tensorflow_nufft_tpu.planar`` for ranks 2 and 3 (2D
-and 3D): ``nufft``, the dense oracle ``nudft`` and the planned
-``PlannedNufft``. A complex tensor ``z`` is carried as ``to_planar(z)`` =
-real [..., 2].
+and 3D): ``nufft``, the standalone ``interp`` and ``spread``, the dense
+oracle ``nudft`` and the planned ``PlannedNufft``. A complex tensor
+``z`` is carried as ``to_planar(z)`` = real [..., 2].
 
 The entry points run on the CUDA card unless the caller asks for the
 CPU: tensors stay on their device, and numpy arrays or lists go to the
 card unless ``device=`` says otherwise (see ``utils.dtypes.
 entry_tensors``). On a CUDA tensor the spread/interp stages, and at rank
 3 the mode stages around cuFFT, run the hand-written Hopper kernels
-(float32 only); on a CPU tensor their plain PyTorch versions. Forward
-only for now: the entry points raise ``NotImplementedError`` for inputs
-that require grad, rather than return a tensor without a graph.
+(float32 only); on a CPU tensor their plain PyTorch versions.
+
+Gradients: ``nufft``, ``interp`` and ``spread`` are differentiable in
+``source`` and ``points``, ``PlannedNufft`` in its source (through
+``adjoint()``); a plan's points are plan data. These are real functions,
+so a gradient is the real transpose, the planar form of the complex
+adjoint: gradients of a real loss equal the JAX package's ``jax.vjp``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from tensorflow_nufft_tpu_torch.ops.nufft_ops import (
     VALID_FFT_DIRECTIONS, VALID_TRANSFORM_TYPES, _apply_batched,
     _canonical_grid_shape, _validate_enum)
 from tensorflow_nufft_tpu_torch.ops.planar_core import (
-    bin_for_plan, nufft_core_planar)
+    bin_for_plan, nufft_core_planar, spread_only_core_planar)
 from tensorflow_nufft_tpu_torch.options.options import Options
 from tensorflow_nufft_tpu_torch.plan.plan import (
     PlanSpec, auto_max_batch_size, log_plan_summary, make_plan,
@@ -51,13 +55,6 @@ def from_planar(p) -> torch.Tensor:
     """Planar real tensor [..., 2] -> complex tensor."""
     p = as_tensor(p)
     return torch.complex(p[..., 0], p[..., 1])
-
-
-def _no_grad_support(*tensors) -> None:
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "autograd through the torch NUFFT is not ported yet; call "
-            "it on tensors that do not require grad")
 
 
 def _check_planar_inputs(source, points, name="source"):
@@ -139,14 +136,40 @@ def nufft(source,
         [...] + grid_shape + [2] (type-1) or [..., M, 2] (type-2), batch
         dims broadcast; modes in CMCL order (index i is k = i - N//2).
     """
-    options = options or Options()
     transform_type = _validate_enum(
         transform_type, VALID_TRANSFORM_TYPES, "transform_type")
     fft_direction = _validate_enum(
         fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
+    return _run(nufft_core_planar, transform_type, fft_direction, False,
+                source, points, grid_shape, tol, options, device)
+
+
+def interp(source, points, tol: float = 1e-6,
+           options: Optional[Options] = None, device=None) -> torch.Tensor:
+    """Planar standalone interpolation (rank 2 or 3): the fine grid
+    ``source`` [..., *grid, 2] (no oversampling: even dims, larger than
+    twice the kernel width, 5-smooth) read at ``points`` [..., M, rank]
+    with the ES kernel of ``tol``, scaled to unit kernel integral.
+    Returns [..., M, 2]; runs where ``nufft`` would (``device``)."""
+    return _run(spread_only_core_planar, "type_2", "forward", True, source,
+                points, None, tol, options, device)
+
+
+def spread(source, points, grid_shape, tol: float = 1e-6,
+           options: Optional[Options] = None, device=None) -> torch.Tensor:
+    """Planar standalone spreading (rank 2 or 3), the transpose of
+    ``interp``: point values ``source`` [..., M, 2] spread onto the grid
+    ``grid_shape``. Returns [..., *grid_shape, 2]."""
+    return _run(spread_only_core_planar, "type_1", "forward", True, source,
+                points, grid_shape, tol, options, device)
+
+
+def _run(core_fn, transform_type, fft_direction, spread_only, source,
+         points, grid_shape, tol, options, device) -> torch.Tensor:
+    """Validates, plans and runs ``core_fn`` over the broadcast batch."""
+    options = options or Options()
     source, points = entry_tensors(source, points, device=device)
     _check_planar_inputs(source, points)
-    _no_grad_support(source, points)
     rank = int(points.shape[-1])
     _check_rank(rank)
     grid_shape, elem_rank, out_elem_shape = _planar_shapes(
@@ -159,8 +182,8 @@ def nufft(source,
         dtype_name=dtype_name(source.dtype),
         tol=float(tol),
         points_range=int(options.points_range),
-        spread_only=False,
-        upsampling_factor=options.upsampling_factor,
+        spread_only=spread_only,
+        upsampling_factor=None if spread_only else options.upsampling_factor,
         kernel_evaluation_method=options.kernel_evaluation_method,
     )
     warn_if_tol_clamped(tol, spec.dtype_name, options.show_warnings)
@@ -168,8 +191,8 @@ def nufft(source,
     max_bs = options.max_batch_size
     if max_bs is None:
         max_bs = auto_max_batch_size(spec, channels_per_batch=2)
-    return _apply_batched(nufft_core_planar, source, points, spec,
-                          elem_rank, out_elem_shape, max_bs)
+    return _apply_batched(core_fn, source, points, spec, elem_rank,
+                          out_elem_shape, max_bs)
 
 
 def nudft(source,
@@ -226,7 +249,8 @@ class PlannedNufft:
     (``binning.KernelWeights``, the counterpart of the JAX package's
     "mats" plan level). Each call then runs only the value-dependent
     work: the values gather, the spread or interp kernel, and the FFT
-    stage.
+    stage. Differentiable in the source (the backward applies
+    ``adjoint()``); the points are plan data and may not require grad.
 
     Args:
         points: [M, rank] float32/float64 tensor or array.
@@ -245,7 +269,12 @@ class PlannedNufft:
             fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
         options = options or Options()
         points, = entry_tensors(points, device=device)
-        _no_grad_support(points)
+        if points.requires_grad:
+            raise ValueError(
+                "a plan's points are plan data: PlannedNufft gives no "
+                "gradient with respect to them (its binning and windows "
+                "are precomputed). Pass points.detach(), or use "
+                "planar.nufft for a points gradient.")
         if points.ndim != 2:
             raise ValueError(
                 f"planned transforms take a single [M, rank] point set, "
@@ -325,10 +354,10 @@ class PlannedNufft:
         Type-2: [B, *grid, 2] -> [B, M, 2]; type-1: [B, M, 2] ->
         [B, *grid, 2]. A leading batch dim is required (use B=1).
         ``source`` is moved to the plan's device and must have the
-        dtype of the plan's points.
+        dtype of the plan's points. Differentiable in ``source``: the
+        gradient applies ``adjoint()``.
         """
         source = as_tensor(source, device=self.device)
-        _no_grad_support(source)
         m = int(self.points.shape[0])
         if self.transform_type == "type_1":
             expect = f"[B, {m}, 2]"
@@ -349,4 +378,18 @@ class PlannedNufft:
             raise TypeError(
                 f"source must have the plan's dtype {self.points.dtype}, "
                 f"got {source.dtype}")
-        return self._apply(source)
+        return _PlannedCall.apply(source, self)
+
+
+class _PlannedCall(torch.autograd.Function):
+    """A planned apply whose backward is the adjoint plan's apply (the
+    real transpose; JAX ``_planned_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, source, op):
+        ctx.op = op
+        return op._apply(source.contiguous())
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        return _PlannedCall.apply(cotangent, ctx.op.adjoint()), None

@@ -33,6 +33,7 @@ from tensorflow_nufft_tpu_torch import PlannedNufft
 from tensorflow_nufft_tpu_torch.kernels import binning as tb
 from tensorflow_nufft_tpu_torch.kernels import dispatch, spread
 from tensorflow_nufft_tpu_torch.plan import plan as tplan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRID = (24, 16, 16)
 M = 3000

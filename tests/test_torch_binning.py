@@ -13,6 +13,7 @@ from tensorflow_nufft_tpu.kernels import binning as jb
 from tensorflow_nufft_tpu.kernels import xla_ops
 from tensorflow_nufft_tpu_torch.kernels import binning as tb
 from tensorflow_nufft_tpu_torch.kernels import torch_ops
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FINE = (128, 192)
 

@@ -113,6 +113,89 @@ def test_interp_kernel_matches_plain(dev, grid, m, tol, kev, clustered,
     _close(got, want)
 
 
+@pytest.mark.parametrize("grid,m,tol,kev,clustered",
+                         [CASES[0], CASES[1], CASES[4], CASES_3D[0],
+                          CASES_3D[4]])
+def test_interp_deriv_kernel_matches_plain(dev, grid, m, tol, kev,
+                                           clustered):
+    """phi' on each axis (direct evaluation; phi by Horner elsewhere)."""
+    plan, geom, binned, _, coords = _layout(grid, m, tol, dev, kev=kev,
+                                            clustered=clustered)
+    tiles = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        geom.tiles + (2,) + geom.ext).astype(np.float32)).to(dev)
+    tb = binned.tile_bounds
+    for axis in range(len(grid)):
+        before = interp.interp_deriv_cuda.launches
+        got = interp.interp_deriv_cuda(tiles, tb, geom, plan, coords, axis)
+        assert interp.interp_deriv_cuda.launches == before + 1
+        _close(got, interp.interp_tiles_plain(tiles, tb, geom, plan,
+                                              coords=coords,
+                                              deriv_axis=axis))
+
+
+@pytest.mark.parametrize("grid,m,b2", [
+    ((64, 96), 2000, 12), ((256, 256), 65536, 16), ((256, 256), 65536, 32),
+    ((16, 16, 64), 3000, 4), ((32, 32, 64), 20000, 6)])
+def test_wide_channel_spread_matches_plain(dev, grid, m, b2):
+    """Channel counts past one block's group (10 at the 2D headline's
+    ext 72^2, 1 at rank 3): the last group on blockIdx.y is partial."""
+    plan, geom, binned, _, coords = _layout(grid, m, 1e-6, dev)
+    group = spread.launch_shape(geom, b2, plan.width)[0]
+    assert group < b2
+    vals = torch.from_numpy(np.random.default_rng(b2).standard_normal(
+        (b2, m)).astype(np.float32)).to(dev)
+    values_pl = binning.build_values_payload(vals, binned)
+    tb = binned.tile_bounds
+    _close(spread.spread_unplanned_cuda(values_pl, tb, geom, plan, coords),
+           spread.spread_tiles_plain(values_pl, tb, geom, plan,
+                                     coords=coords))
+
+
+@pytest.mark.parametrize("grid,transform_type", [
+    ((64, 96), "type_1"), ((64, 96), "type_2"), ((16, 16, 64), "type_1"),
+    ((16, 16, 64), "type_2")])
+def test_nufft_grads_on_cuda_match_cpu(dev, grid, transform_type):
+    m, batch = 3000, 3
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-np.pi, np.pi, (m, len(grid))).astype(np.float32)
+    shape = (batch,) + ((m,) if transform_type == "type_1" else grid) + (2,)
+    src = rng.standard_normal(shape).astype(np.float32)
+    kw = dict(grid_shape=grid if transform_type == "type_1" else None,
+              transform_type=transform_type, fft_direction="backward")
+    grads = []
+    for device in ("cpu", dev):
+        s = torch.from_numpy(src).to(device).requires_grad_()
+        p = torch.from_numpy(pts).to(device).requires_grad_()
+        out = tnt.planar.nufft(s, p, **kw)
+        out.backward(torch.ones_like(out))
+        grads.append((out.detach().cpu(), s.grad.cpu(), p.grad.cpu()))
+    for want, got in zip(*grads):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("grid", [(64, 96), (32, 32, 64)])
+def test_spread_only_ops_on_cuda_match_cpu(dev, grid):
+    m = 3000
+    rng = np.random.default_rng(8)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, len(grid))).astype(
+        np.float32))
+    src = torch.from_numpy(rng.standard_normal((2, m, 2)).astype(np.float32))
+    results = []
+    for device in ("cpu", dev):
+        s = src.to(device, copy=True).requires_grad_()
+        p = pts.to(device, copy=True).requires_grad_()
+        before = interp.interp_deriv_cuda.launches
+        fine = tnt.planar.spread(s, p, grid)
+        back = tnt.planar.interp(fine, p)
+        back.square().sum().backward()
+        launched = interp.interp_deriv_cuda.launches - before
+        assert launched == (2 * len(grid) if device == dev else 0)
+        results.append((fine.detach().cpu(), back.detach().cpu(),
+                        s.grad.cpu(), p.grad.cpu()))
+    for want, got in zip(*results):
+        _close(got, want)
+
+
 @pytest.mark.parametrize("grid,m", [((256, 256), 65536),
                                     ((32, 32, 64), 20000)])
 def test_spread_kernel_is_deterministic(dev, grid, m):

@@ -21,6 +21,7 @@ from tensorflow_nufft_tpu.plan import plan as jplan
 from tensorflow_nufft_tpu_torch.kernels import binning as tb
 from tensorflow_nufft_tpu_torch.kernels import dispatch, interp
 from tensorflow_nufft_tpu_torch.plan import plan as tplan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRID = (64, 96)      # fine 128 x 192: 2 x 3 tiles, halos wrap both axes
 M = 2000

@@ -29,6 +29,7 @@ from tensorflow_nufft_tpu_torch.kernels import binning as tb
 from tensorflow_nufft_tpu_torch.kernels import (dispatch, interp, spread,
                                                 torch_ops)
 from tensorflow_nufft_tpu_torch.plan import plan as tplan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRID = (16, 16, 64)
 M = 3000

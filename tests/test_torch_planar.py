@@ -13,6 +13,7 @@ import torch
 
 import tensorflow_nufft_tpu as tfft
 import tensorflow_nufft_tpu_torch as tnt
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 ORACLE_TOL = 1e-3
@@ -84,7 +85,15 @@ def test_options_match_jax(points_range, scale, kev, transform_type):
         torch.from_numpy(src), torch.from_numpy(pts),
         options=tnt.Options(points_range=points_range,
                             kernel_evaluation_method=kev), **kw)
-    assert _relerr(got, want) <= RTOL
+    err = _relerr(got, want)
+    if err > RTOL:
+        # Name the side that moved: each against the float64 oracle.
+        oracle = tfft.planar.nudft(src.astype(np.float64),
+                                   pts.astype(np.float64), **kw)
+        pytest.fail(
+            f"port vs JAX relative error {err:.3e} > {RTOL:g}; against "
+            f"the float64 nudft: port {_relerr(got, oracle):.3e}, JAX "
+            f"{_relerr(want, oracle):.3e}")
 
 
 @pytest.mark.parametrize("transform_type,batch", [
@@ -194,14 +203,9 @@ def test_planar_roundtrip():
 def test_errors():
     pts = torch.from_numpy(_points(100, 21))
     src = torch.from_numpy(_source("type_1", (16, 16), 100, (), 22))
-    with pytest.raises(NotImplementedError, match="autograd"):
-        tnt.planar.nufft(src.clone().requires_grad_(), pts,
-                         grid_shape=(16, 16), transform_type="type_1")
-    with pytest.raises(NotImplementedError, match="autograd"):
+    with pytest.raises(ValueError, match="plan data"):
         tnt.PlannedNufft(pts.clone().requires_grad_(), (16, 16))
     op = tnt.PlannedNufft(pts, (16, 16), transform_type="type_1")
-    with pytest.raises(NotImplementedError, match="autograd"):
-        op(src[None].clone().requires_grad_())
     with pytest.raises(NotImplementedError, match="rank"):
         tnt.planar.nufft(torch.zeros(10, 2), torch.zeros(10, 1),
                          grid_shape=(16,), transform_type="type_1")

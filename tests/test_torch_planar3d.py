@@ -20,6 +20,7 @@ import tensorflow_nufft_tpu as tfft
 import tensorflow_nufft_tpu_torch as tnt
 from tensorflow_nufft_tpu.plan import plan as jplan
 from tensorflow_nufft_tpu_torch.plan import plan as tplan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRID = (16, 16, 64)
 M = 3000
