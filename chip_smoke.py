@@ -6,8 +6,12 @@ entry points a user calls, on the card, with no JAX:
 - 2D: bench.py's headline, 256^2 modes, 65,536 uniform points, tol 1e-6,
   seed 42;
 - 3D: bench_suite.py's 3d_t1_128_800k / 3d_t2_128_800k, 128^3 modes,
-  800,000 uniform points, tol 1e-6, seed 42, batch 1 (fine grid 256^3,
-  1024 tiles of ext (24, 24, 72), chunk 512, 2586 chunks).
+  800,000 uniform points, tol 1e-6, seed 42, batch 1 (fine grid 256^3).
+  The unplanned transforms tile it in 1024 tiles of ext (24, 24, 72),
+  chunk 512, 2586 chunks; PlannedNufft takes the JAX package's binned
+  level there (its dense matrices would exceed 256 MiB): z-ordered
+  binning on 128 tiles of ext (136, 24, 72), 1690 chunks, an axis-0 band
+  of 16 rows per 128-slot sub-chunk.
 
 Phases:
 
@@ -24,33 +28,56 @@ Phases:
    launched; then gates each result against the exact NUDFT (complex128
    on the card, < 10 * tol relative to the peak) and against the port's
    own float64 plain pipeline on the CPU (< tol).
-5. 3D kernels: at the full 3D geometry, the eight rank-3 launches
-   (planned and unplanned spread and interp, fold3d, truncate_
-   deconvolve3d, amplify_pad3d, extend_tiles3d) against their plain
-   versions on the card, with the same 1e-5 bound.
-6. 3D end to end: zeroes the counters, runs PlannedNufft type-1 and its
-   adjoint(), then planar.nufft type-1 and type-2, and checks that every
-   3D kernel was launched. Gates, as bench_suite.py's 3D census:
-   err_total < 10 * tol against the exact NUDFT in complex128 on a seeded
-   subset (4096 modes over all points for type-1, 4096 points over all
-   modes for type-2), and err_impl < max(tol, 4 * floor_f32) against the
-   port's float64 plain pipeline, where floor_f32 is the port's float32
-   plain pipeline's error against that same float64 one (both plain
-   pipelines run on the card, called directly, not through dispatch).
-7. Times (CUDA events, median of 25 runs after warm-up): each kernel and
-   its plain version, the 2D and 3D transforms (points/s), the two 3D
-   torch.fft calls and the 3D plan build. Each kernel's bound is the
-   larger of its bytes over 3.35 TB/s and its float32 operations over
-   67 TFLOP/s (H100 SXM data sheet), from this run's shapes.
-8. 3D planned at a mats-level size (128^3 modes, 200,000 points, where
+5. 2D planned surface ("mats" level): with the counters zeroed,
+   ``normal`` with and without ``slot_weights`` of a density vector (|k|)
+   against ``adjoint()(forward(x))`` with the same weights, and
+   ``apply_to_slots``/``apply_from_slots`` against ``to_slots``/
+   ``from_slots`` of the point-order applies, to 1e-5 of the peak; times
+   of ``normal`` against the composed pair.
+6. 3D kernels: at the unbanded 3D geometry, the unplanned spread and
+   interp, fold3d, truncate_deconvolve3d, amplify_pad3d and
+   extend_tiles3d against their plain versions on the card, with the
+   same 1e-5 bound; the per-slot-window kernels there (the planned
+   route at the "mats" level) held and timed for comparison.
+7. 3D end to end: zeroes the counters, runs PlannedNufft type-1 (the
+   binned level: the banded spread and the staged mode stage) and its
+   adjoint() (the banded interp), then planar.nufft type-1 and type-2,
+   and checks that every kernel of those routes was launched; prints the
+   plan's geometry, slot count and band. Gates, as bench_suite.py's 3D
+   census: err_total < 10 * tol against the exact NUDFT in complex128 on
+   a seeded subset (4096 modes over all points for type-1, 4096 points
+   over all modes for type-2), and err_impl < max(tol, 4 * floor_f32)
+   against the port's float64 plain pipeline, where floor_f32 is the
+   port's float32 plain pipeline's error against that same float64 one
+   (both plain pipelines run on the card, called directly, not through
+   dispatch).
+8. 3D binned kernels: at the binned geometry, the banded spread at B2 =
+   2 (row 7), at 4 and with slot-order values (row 8), the banded interp
+   (row 13, its chunk- and point-order outputs), the fused spread with
+   its axis-2 epilogue (row 9) and the two-axis fold and truncation after
+   it, each against its plain version (1e-5 of the peak) and timed.
+9. 3D planned surface at the binned level: as phase 5 on the adjoint
+   (type-2) plan, with launch counts.
+10. The type-1 routes: the fused and the staged route held to each other
+   and timed in turns (the port's gate, planar_fft.FUSED_DFTA, is set
+   from these times); then the fused route with launch counting, as a
+   caller who turns the gate on runs it (type-1 and normal).
+11. Times (CUDA events, median of 25 runs after warm-up; plain versions
+   5): each kernel and its plain version, the 2D and 3D transforms
+   (points/s), the two 3D torch.fft calls and the 3D plan build, and the
+   3D planned transforms and plan build on the "mats" route (per-slot
+   windows, the budget raised) on the same card. Each kernel's bound is
+   the larger of its bytes over 3.35 TB/s and its float32 operations
+   over 67 TFLOP/s (H100 SXM data sheet), from this run's shapes.
+12. 3D planned at a mats-level size (128^3 modes, 200,000 points, where
    the JAX plan keeps its dense matrices and runs TPU rows 3 and 12):
    a planned type-1 and its adjoint with launch counting, held to the
    unplanned transforms; the planned spread and interp held and timed.
-9. Training kernels: the derivative interp (phi' on one axis) on each
+13. Training kernels: the derivative interp (phi' on one axis) on each
    axis at the 2D headline and on axis 0 at the 3D headline, and the
    unplanned spread at 6, 16 and 32 channels (2D) and 6 (3D), against
    their plain versions, timed.
-10. 2D training: the headline points as a learnable [65536, 2] tensor
+14. 2D training: the headline points as a learnable [65536, 2] tensor
    and a multicoil image x [8, 256, 256, 2]; loss 0.5 |A(x; k) - y|^2
    with A the type-2 NUFFT and y made with a perturbed trajectory.
    Step-1 gradients gated: err_total < 10 * tol against complex128
@@ -59,13 +86,13 @@ Phases:
    the float64 plain pipeline on the card; the planned form (x only,
    through adjoint()); three Adam steps whose loss must fall; one
    type-1-loss step (batch 3); launch counts and times per step.
-11. 2D spread-only: planar.interp and planar.spread on the 512^2 fine
+15. 2D spread-only: planar.interp and planar.spread on the 512^2 fine
    grid, forward and backward, against the same calls on CPU tensors,
    and the points gradient against a float64 central difference of the
    plain ops at a few points.
-12. 3D training: one forward + backward of the type-2 loss at the 3D
+16. 3D training: one forward + backward of the type-2 loss at the 3D
    headline (batch 1), gated on 4096-element subsets, timed; then the
-   3D spread-only ops as in 11, without the CPU comparison.
+   3D spread-only ops as in 15, without the CPU comparison.
 
 With --profile: for each transform, plan build and training step, the
 CUDA-event median, the device busy time per call from torch.profiler
@@ -229,17 +256,27 @@ KERNELS = {
                          f"{_PI}:218", "2d"),
     # At the 3D headline the JAX PlannedNufft takes its binned level: its
     # dense kernel matrices (6.36e8 B) exceed their 256 MiB budget. It then
-    # runs the axis-0-banded kernels, whose tile blocks the port's planned
-    # kernels compute on the unbanded geometry
-    # (tests/test_torch_banded3d.py). The per-tile-grid mats kernels
-    # (pallas_spread.py:1011, pallas_interp.py:373) serve 3D sizes whose
-    # matrices fit.
-    "spread3d_planned": ("spread.spread_planned_cuda", "spread.cu",
-                         f"{_PS}:693", "3d"),
+    # bins in z-order on a coarse axis-0 geometry and runs the
+    # axis-0-banded kernels, as the port's plan does: rows 7 and 13 (8
+    # with slot-order values or B2 > 2), and row 9 (the fused axis-2
+    # epilogue, followed by passes B and C) where its gate takes it.
+    # The planned type-1 takes the staged route by default (banded spread,
+    # fold3d, cuFFT, truncation); "3d_fused" runs the fused route with the
+    # gate turned on.
+    "spread3d_banded": ("spread.spread_banded_cuda", "spread.cu",
+                        f"{_PS}:693", "3d"),
+    "spread3d_banded_split": ("spread.spread_banded_cuda", "spread.cu",
+                              f"{_PS}:736", "3d_slots"),
+    "spread3d_dfta": ("spread.spread_dfta_cuda", "spread.cu", f"{_PS}:786",
+                      "3d_fused"),
+    "fold2": ("mode3d.fold2_cuda", "mode3d.cu", f"{_PD}:362,384",
+              "3d_fused"),
+    "truncate_deconvolve2": ("mode3d.truncate_deconvolve2_cuda",
+                             "mode3d.cu", f"{_PD}:362,384", "3d_fused"),
+    "interp3d_banded": ("interp.interp_banded_cuda", "interp.cu",
+                        f"{_PI}:281", "3d"),
     "spread3d_unplanned": ("spread.spread_unplanned_cuda", "spread.cu",
                            f"{_PS}:638", "3d"),
-    "interp3d_planned": ("interp.interp_planned_cuda", "interp.cu",
-                         f"{_PI}:281", "3d"),
     "interp3d_unplanned": ("interp.interp_unplanned_cuda", "interp.cu",
                            f"{_PI}:218", "3d"),
     "fold3d": ("mode3d.fold3d_cuda", "mode3d.cu", f"{_PD}:346,362,384", "3d"),
@@ -273,9 +310,14 @@ KERNELS = {
 PHASE_KERNELS = {
     "2d": ("spread_planned", "spread_unplanned", "interp_planned",
            "interp_unplanned"),
-    "3d": ("spread3d_planned", "spread3d_unplanned", "interp3d_planned",
+    "2d_slots": ("spread_planned", "interp_planned"),
+    "3d": ("spread3d_banded", "spread3d_unplanned", "interp3d_banded",
            "interp3d_unplanned", "fold3d", "truncate_deconvolve3d",
            "amplify_pad3d", "extend_tiles3d"),
+    "3d_slots": ("spread3d_banded_split", "interp3d_banded", "fold3d",
+                 "truncate_deconvolve3d", "amplify_pad3d", "extend_tiles3d"),
+    "3d_fused": ("spread3d_dfta", "fold2", "truncate_deconvolve2",
+                 "interp3d_banded", "amplify_pad3d", "extend_tiles3d"),
     "train2d": ("spread_split", "interp_unplanned"),
     "train2d_planned": ("spread_planned", "interp_planned"),
     "train2d_type1": ("spread_split_resident", "interp_unplanned"),
@@ -352,11 +394,12 @@ def hold(name, kernel, plain, results):
 
 
 def time_pair(name, kernel, plain, results, work):
-    """Times ``kernel`` and ``plain`` and records them with the bound of
-    ``work`` = (bytes, operations)."""
+    """Times ``kernel`` and ``plain`` (5 runs: it is no yardstick of
+    speed) and records them with the bound of ``work`` = (bytes,
+    operations)."""
     res = results[name]
     res["ms"] = cuda_ms(kernel)
-    res["plain_ms"] = cuda_ms(plain)
+    res["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
     res["bound_ms"], res["bound_by"] = bound(*work)
     log(f"time {name}: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
@@ -585,21 +628,12 @@ def kernel_phase_3d(points, dev):
     nf3 = int(np.prod(geom.fine_shape))
     tile_bytes = 4 * tiles.numel()
     cases = {
-        "spread3d_planned": (
-            lambda: wrap["spread3d_planned"](values_pl, tb, geom, plan, kw),
-            lambda: spread.spread_tiles_plain(values_pl, tb, geom, plan,
-                                              kw=kw),
-            tile_work("spread", True, geom, plan, 2, m, used)),
         "spread3d_unplanned": (
             lambda: wrap["spread3d_unplanned"](values_pl, tb, geom, plan,
                                                coords),
             lambda: spread.spread_tiles_plain(values_pl, tb, geom, plan,
                                               coords=coords),
             tile_work("spread", False, geom, plan, 2, m, used)),
-        "interp3d_planned": (
-            lambda: wrap["interp3d_planned"](tiles, tb, geom, plan, kw),
-            lambda: interp.interp_tiles_plain(tiles, tb, geom, plan, kw=kw),
-            tile_work("interp", True, geom, plan, 2, m, used)),
         "interp3d_unplanned": (
             lambda: wrap["interp3d_unplanned"](tiles, tb, geom, plan,
                                                coords),
@@ -629,6 +663,26 @@ def kernel_phase_3d(points, dev):
     for name, (kernel, plain, work) in cases.items():
         hold(name, kernel, plain, results)
         time_pair(name, kernel, plain, results, work)
+    # The per-slot-window kernels at the unbanded headline geometry, the
+    # "mats" route at this geometry (rows 3 and 12 are timed at their
+    # main-path size in planned_mats_phase_3d): held, and timed for the
+    # comparison with the banded kernels.
+    for name, kernel, plain, kind in (
+            ("spread3d_planned_mats",
+             functools.partial(wrap["spread3d_planned_mats"], values_pl, tb,
+                               geom, plan, kw),
+             functools.partial(spread.spread_tiles_plain, values_pl, tb,
+                               geom, plan, kw=kw), "spread"),
+            ("interp3d_planned_mats",
+             functools.partial(wrap["interp3d_planned_mats"], tiles, tb,
+                               geom, plan, kw),
+             functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
+                               plan, kw=kw), "interp")):
+        hold(name, kernel, plain, results)
+        log(f"time {kind} per-slot windows at the unbanded 3D headline: "
+            f"kernel {cuda_ms(kernel):.4f} ms, bound "
+            f"{bound(*tile_work(kind, True, geom, plan, 2, m, used))[0]:.4f}"
+            f" ms")
     fine = spec.clone()
     for name, fn in (("fftn", lambda: torch.fft.fftn(fine, dim=(1, 2, 3))),
                      ("ifftn", lambda: torch.fft.ifftn(
@@ -791,6 +845,16 @@ def end_to_end_3d(points, z, modes, dev):
     t2_unplanned = tnt.planar.nufft(modes_p, pts, transform_type="type_2",
                                     fft_direction="backward", tol=TOL)
     torch.cuda.synchronize()
+    g = op1.geom
+    log(f"3D plan level {op1.level}: tiles {g.tiles} x {g.tile} ext {g.ext} "
+        f"chunk {g.chunk} chunks {g.num_chunks} (used "
+        f"{int(op1.binned.tile_bounds[-1])}); num_slots {op1.num_slots}; "
+        f"band {op1.band_info.band if op1.band_info else None} with "
+        f"{op1.band_info.zorigins.numel() if op1.band_info else 0} "
+        f"sub-chunk origins (16 expected for these points)")
+    if op1.level != "binned" or op1.band_info is None:
+        raise RuntimeError("the 3D headline plan did not take the banded "
+                           "binned level")
     launches = read_launches("3d")
     outs = {"t1_planned": t1_planned, "t1_unplanned": t1_unplanned,
             "t2_planned": t2_planned, "t2_unplanned": t2_unplanned}
@@ -850,15 +914,238 @@ def end_to_end_3d(points, z, modes, dev):
 
 
 def transform_times_3d(op1, adj, pts, strengths, modes_p):
+    """The 3D transforms at the binned level, then the planned ones and
+    the plan build on the "mats" route (per-slot windows on the unbanded
+    geometry: the budget raised for them) on the same card."""
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.kernels import binning
+    def build_mats():
+        budget = binning.MATS_BYTES_BUDGET
+        binning.MATS_BYTES_BUDGET = 2 ** 40
+        try:
+            return tnt.PlannedNufft(pts, GRID3, transform_type="type_1",
+                                    tol=TOL)
+        finally:
+            binning.MATS_BYTES_BUDGET = budget
+    mats = build_mats()
+    if mats.level != "mats":
+        raise RuntimeError("the raised budget did not give the mats level")
     cases = transform_cases(op1, adj, pts, strengths, modes_p, GRID3,
                             dict(fft_direction="backward"))
+    cases.update({"t1_planned_mats": lambda: mats(strengths[None]),
+                  "t2_planned_mats": lambda: mats.adjoint()(modes_p[None]),
+                  "plan_build_mats": build_mats})
     for name, fn in cases.items():
         ms = cuda_ms(fn)
-        if name == "plan_build":
-            log(f"time 3d plan build (PlannedNufft type-1): {ms:.4f} ms")
+        if name.startswith("plan_build"):
+            log(f"time 3d {name} (PlannedNufft type-1, level "
+                f"{'mats' if name.endswith('mats') else op1.level}): "
+                f"{ms:.4f} ms")
         else:
             log(f"time 3d_{name}: {ms:.4f} ms per transform, "
                 f"{NUM_POINTS3 / (ms * 1e-3):.4e} points/s")
+
+
+def kernel_phase_binned(op, dev):
+    """The binned level's kernels at the 3D headline (``op``: the
+    binned-level type-1 plan, z-ordered on the coarse axis-0 geometry),
+    each against its plain version on the card: the banded spread at B2
+    = 2 and 4 and with slot-order values, the banded interp (its chunk-
+    and point-order outputs), the fused spread with the axis-2 epilogue,
+    the two-axis fold and truncation, and the fused against the staged
+    planned type-1."""
+    import torch
+    from tensorflow_nufft_tpu_torch.fft import planar_fft
+    from tensorflow_nufft_tpu_torch.kernels import (binning, dispatch, interp,
+                                                    mode3d, spread)
+    geom, binned, plan = op.geom, op.binned, op.plan
+    coords, band, tb = op.coords, op.band_info, op.binned.tile_bounds
+    m, used = NUM_POINTS3, int(tb[-1]) * geom.chunk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    values = {b2: binning.build_values_payload(torch.randn(
+        (b2, m), generator=gen, device=dev), binned) for b2 in (2, 4)}
+    tiles = torch.randn(geom.tiles + (2,) + geom.ext, generator=gen,
+                        device=dev)
+    # Slot-order values, zero in padded slots, as apply_from_slots and
+    # normal pass them.
+    slots = op.to_slots(torch.randn((1, m, 2), generator=gen, device=dev))
+    slots = slots[0].t().contiguous()
+    twiddles = planar_fft.dfta_twiddles(plan, geom, dev)
+    y = spread.dfta_plain(spread.spread_tiles_plain(
+        values[2], tb, geom, plan, coords=coords, band=band), twiddles)
+    spec2 = planar_fft._fft(mode3d.fold_plain(y, geom, 1, axes=2),
+                            "forward", (1, 2)).contiguous()
+    log(f"3D binned bytes: banded tile array {tiles.numel() * 4:.4e}, y "
+        f"{y.numel() * 4:.4e}, coords payload {coords.numel() * 4:.4e}, "
+        f"twiddles {twiddles.numel() * 4:.4e}")
+    wrap = wrappers()
+    n3, nt2, e2 = int(np.prod(GRID3)), geom.tiles[2], geom.ext[2]
+    fine2 = int(np.prod(spec2.shape))
+    spread_work = tile_work("spread", False, geom, plan, 2, m, used)
+    # The epilogue: per y pair and t2 tile, three E2-long dot products and
+    # the xr + xi sum, 7 operations per E2 element.
+    epi_ops = (y.numel() // 2) * nt2 * 7 * e2
+    # The fused kernel writes y in place of the tile array.
+    tile_bytes = 4 * geom.num_tiles * 2 * int(np.prod(geom.ext))
+    cases = {
+        "spread3d_banded": (
+            functools.partial(wrap["spread3d_banded"], values[2], tb, geom,
+                              plan, coords, band),
+            functools.partial(spread.spread_tiles_plain, values[2], tb, geom,
+                              plan, coords=coords, band=band), spread_work),
+        "spread3d_banded_split": (
+            functools.partial(wrap["spread3d_banded_split"], slots, tb, geom,
+                              plan, coords, band),
+            functools.partial(spread.spread_tiles_plain, slots, tb, geom,
+                              plan, coords=coords, band=band), spread_work),
+        "interp3d_banded": (
+            functools.partial(wrap["interp3d_banded"], tiles, tb, geom, plan,
+                              coords, band),
+            functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
+                              plan, coords=coords, band=band),
+            tile_work("interp", False, geom, plan, 2, m, used)),
+        "spread3d_dfta": (
+            functools.partial(wrap["spread3d_dfta"], values[2], tb, geom,
+                              plan, coords, band, twiddles),
+            lambda: spread.dfta_plain(spread.spread_tiles_plain(
+                values[2], tb, geom, plan, coords=coords, band=band),
+                twiddles),
+            (spread_work[0] - tile_bytes + 4 * y.numel()
+             + 4 * twiddles.numel(), spread_work[1] + epi_ops)),
+        # (bytes, operations): y in, grid out, one add per element.
+        "fold2": (
+            functools.partial(wrap["fold2"], y, geom, 1),
+            functools.partial(mode3d.fold_plain, y, geom, 1, axes=2),
+            (4 * y.numel() + 8 * fine2, y.numel())),
+        # The n^3 spectrum values it needs in, modes out, 3 multiplies.
+        "truncate_deconvolve2": (
+            functools.partial(wrap["truncate_deconvolve2"], spec2, plan,
+                              geom),
+            functools.partial(mode3d.truncate_deconvolve_plain, spec2, plan,
+                              axes=2),
+            (16 * n3 + 4 * sum(GRID3[:2]), 3 * n3)),
+    }
+    results = {}
+    for name, (kernel, plain, work) in cases.items():
+        hold(name, kernel, plain, results)
+        time_pair(name, kernel, plain, results, work)
+    extra = {}
+    hold("spread3d_banded_split", functools.partial(
+        wrap["spread3d_banded_split"], values[4], tb, geom, plan, coords,
+        band), functools.partial(spread.spread_tiles_plain, values[4], tb,
+                                 geom, plan, coords=coords, band=band), extra)
+    ms4 = cuda_ms(functools.partial(wrap["spread3d_banded"], values[4], tb,
+                                    geom, plan, coords, band))
+    log(f"time spread3d_banded B2 4: kernel {ms4:.4f} ms, bound "
+        f"{bound(*tile_work('spread', False, geom, plan, 4, m, used))[0]:.4f}"
+        f" ms")
+    results["spread3d_banded_split"]["max_abs_err"] = max(
+        results["spread3d_banded_split"]["max_abs_err"],
+        extra["spread3d_banded_split"]["max_abs_err"])
+    # The banded interp's point-order output (its plain version's through
+    # the same gather).
+    got = dispatch.interp_tiled(tiles, binned, geom, plan, coords=coords,
+                                band=band)
+    want = binning.scatter_chunked(cases["interp3d_banded"][1]().transpose(
+        0, 1).reshape(2, -1), binned)
+    err = rel(got, want)
+    log(f"interp3d_banded point order: vs plain {err:.3e} (gate < "
+        f"{KERNEL_RTOL:g})")
+    if not err <= KERNEL_RTOL:
+        raise RuntimeError("interp3d_banded point order disagrees")
+    return results
+
+
+def routes_phase_3d(op, strengths):
+    """The planned type-1 on the fused and the staged route (the gate
+    forced each way), held to each other and timed in turns (fused,
+    staged, staged, fused): the times the port's gate is set from."""
+    from tensorflow_nufft_tpu_torch.fft import planar_fft
+    gate = planar_fft.FUSED_DFTA
+    src = strengths[None]
+    times, outs = {True: [], False: []}, {}
+    try:
+        for fused in (True, False, False, True):
+            planar_fft.FUSED_DFTA = fused
+            outs[fused] = op(src)
+            times[fused].append(cuda_ms(lambda: op(src), reps=12))
+    finally:
+        planar_fft.FUSED_DFTA = gate
+    err = rel(outs[True], outs[False])
+    log(f"3D planned type-1 routes: fused {times[True]} ms, staged "
+        f"{times[False]} ms (means {np.mean(times[True]):.4f} / "
+        f"{np.mean(times[False]):.4f} ms); fused vs staged {err:.3e} (gate "
+        f"< {KERNEL_RTOL:g}); the gate takes "
+        f"{'fused' if planar_fft.fused_route(op.geom, op.band_info) else 'staged'}")
+    if not err <= KERNEL_RTOL:
+        raise RuntimeError("the fused and staged type-1 routes disagree")
+
+
+def fused_phase_3d(op, strengths, modes_p):
+    """The binned level's fused route as a caller who turns the gate on
+    (``planar_fft.FUSED_DFTA``) runs it, with launch counting: the planned
+    type-1 and ``normal`` on its adjoint, held to the default route."""
+    import torch
+    from tensorflow_nufft_tpu_torch.fft import planar_fft
+    adj, gate = op.adjoint(), planar_fft.FUSED_DFTA
+    want = (op(strengths[None]), adj.normal(modes_p[None]))
+    planar_fft.FUSED_DFTA = True
+    try:
+        reset_launches()
+        got = (op(strengths[None]), adj.normal(modes_p[None]))
+        torch.cuda.synchronize()
+        launches = read_launches("3d_fused")
+    finally:
+        planar_fft.FUSED_DFTA = gate
+    for name, a, b in zip(("type-1", "normal"), got, want):
+        err = rel(a, b)
+        log(f"3D fused route {name}: vs the staged route {err:.3e} (gate < "
+            f"{KERNEL_RTOL:g})")
+        if not err <= KERNEL_RTOL:
+            raise RuntimeError(f"3D fused route {name} disagrees")
+    return launches
+
+
+def slots_phase(label, t2, x, c, density, phase):
+    """The planned surface on the type-2 plan ``t2`` (its adjoint the
+    type-1): ``normal`` with and without ``slot_weights`` of a density
+    vector against adjoint()(t2(x)) with the same weights, and the
+    slot-order applies against the slot conversions of the point-order
+    ones, to 1e-5 of the peak; launch counts of the main path ``phase``
+    and times of ``normal`` against the composed pair."""
+    import torch
+    t1 = t2.adjoint()
+    slot_w = t2.slot_weights(density)
+    slots_c = t1.to_slots(c)
+    reset_launches()
+    outs = {"normal": t2.normal(x), "normal_w": t2.normal(x, slot_w),
+            "apply_to_slots": t2.apply_to_slots(x),
+            "apply_from_slots": t1.apply_from_slots(slots_c)}
+    torch.cuda.synchronize()
+    launches = read_launches(phase)
+    vals = t2(x)
+    refs = {"normal": t1(vals), "normal_w": t1(vals * density[None, :, None]),
+            "apply_to_slots": t2.to_slots(vals), "apply_from_slots": t1(c)}
+    for name, out in outs.items():
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"{label} {name} has non-finite values")
+        err = rel(out, refs[name])
+        log(f"{label} {name}: vs the point-order composition {err:.3e} "
+            f"(gate < {KERNEL_RTOL:g})")
+        if not err <= KERNEL_RTOL:
+            raise RuntimeError(f"{label} {name} disagrees with its "
+                               f"composition")
+    dead = outs["apply_to_slots"][:, t2.slot_mask == 0]
+    if bool(dead.any()):
+        raise RuntimeError(f"{label} apply_to_slots: nonzero dead slots")
+    for name, fn in (("normal_w", lambda: t2.normal(x, slot_w)),
+                     ("composed", lambda: t1(t2(x) * density[None, :, None])),
+                     ("normal_w", lambda: t2.normal(x, slot_w)),
+                     ("apply_to_slots", lambda: t2.apply_to_slots(x)),
+                     ("apply_from_slots", lambda: t1.apply_from_slots(
+                         slots_c))):
+        log(f"time {label} {name}: {cuda_ms(fn):.4f} ms")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1359,6 +1646,10 @@ def main():
     launches, op1, op2, pts, strengths, modes_p = end_to_end(
         points, z, modes, dev)
     transform_times(op1, op2, pts, strengths, modes_p)
+    phases = {"2d": launches}
+    phases["2d_slots"] = slots_phase(
+        "2d planned surface", op2, modes_p[None], strengths[None],
+        torch.linalg.norm(pts, dim=1), "2d_slots")
     if "--profile" in sys.argv:
         profile_phase("2d", transform_cases(
             op1, op2, pts, strengths, modes_p, (GRID, GRID), {}))
@@ -1368,7 +1659,13 @@ def main():
     torch.cuda.empty_cache()
     launches3, op1, adj, pts, strengths, modes_p = end_to_end_3d(
         points3, z3, modes3, dev)
-    phases = {"2d": launches, "3d": launches3}
+    phases["3d"] = launches3
+    results.update(kernel_phase_binned(op1, dev))
+    phases["3d_slots"] = slots_phase(
+        "3d binned level", adj, modes_p[None], strengths[None],
+        torch.linalg.norm(pts, dim=1), "3d_slots")
+    routes_phase_3d(op1, strengths)
+    phases["3d_fused"] = fused_phase_3d(op1, strengths, modes_p)
     transform_times_3d(op1, adj, pts, strengths, modes_p)
     profile = "--profile" in sys.argv
     if profile:

@@ -24,6 +24,19 @@
 // The TPU computes the DFT as matrix products only because it has no
 // usable complex FFT; everything else those six kernels do is here.
 //
+// Two-axis variants (kAxes = 2), the stages after the fused banded
+// spread (csrc/spread.cu, replacing pallas_spread.py:
+// _spread_kernel_split_banded_dfta, whose epilogue already contracted
+// axis 2 to its n2 modes with the deconvolving twiddles), replacing
+// pallas_dft.py:_pass_b_kernel and :_pass_c_kernel on that route
+// (_run_passes_bc):
+//   fold3d               y [nt0, nt1, 2B, E0, E1, n2] -> complex64
+//                        [B, nf0, nf1, n2]: the overlap-add of axes 0 and
+//                        1 only (axis 2 is one untiled block of n2)
+//   (torch.fft over axes 0 and 1)
+//   truncate_deconvolve3d  the mode slots and weights of axes 0 and 1;
+//                        axis 2 is already in mode order and weighted
+//
 // Design. Each kernel is a gather: one thread per output element, with a
 // grid-stride loop, so every element is written once, without atomics,
 // and the results are deterministic. fold3d sums, for each fine cell, the
@@ -45,9 +58,11 @@
 namespace {
 
 // Integer parameters, in this order (kernels/_build.py:mode_params).
+// kAxes: the leading axes that are tiled and transformed (3, or 2 for the
+// fused route, whose axis 2 has nt2 = 1, tile2 = nf2 = n2 and no halo).
 enum ModeParam {
   kBatch, kNf0, kNf1, kNf2, kN0, kN1, kN2, kNt0, kNt1, kNt2, kTile0,
-  kTile1, kTile2, kPad, kNumModeParams
+  kTile1, kTile2, kPad, kAxes, kNumModeParams
 };
 
 struct Grid3 {
@@ -57,6 +72,7 @@ struct Grid3 {
   int nt[3];    // tiles per axis
   int tile[3];  // core tile dims
   int pad;      // halo on each side
+  int axes;     // tiled, transformed leading axes
 };
 
 Grid3 grid_from(const int* ip) {
@@ -69,6 +85,7 @@ Grid3 grid_from(const int* ip) {
     g.tile[d] = ip[kTile0 + d];
   }
   g.pad = ip[kPad];
+  g.axes = ip[kAxes];
   return g;
 }
 
@@ -99,9 +116,12 @@ __device__ __forceinline__ int mode_of(int x, int n, int nf) {
 
 __global__ void fold3d_kernel(const float* __restrict__ tiles,
                               float2* __restrict__ fine, Grid3 g) {
-  int ext[3];
+  int ext[3], pad[3];
 #pragma unroll
-  for (int d = 0; d < 3; ++d) ext[d] = g.tile[d] + 2 * g.pad;
+  for (int d = 0; d < 3; ++d) {
+    pad[d] = d < g.axes ? g.pad : 0;
+    ext[d] = g.tile[d] + 2 * pad[d];
+  }
   const long long block = (long long)ext[0] * ext[1] * ext[2];
   const int b2 = 2 * g.batch;
   const long long total =
@@ -123,15 +143,15 @@ __global__ void fold3d_kernel(const float* __restrict__ tiles,
       const int t = x[d] / g.tile[d];
       const int u = x[d] - t * g.tile[d];
       ct[d][0] = t;
-      ce[d][0] = u + g.pad;
+      ce[d][0] = u + pad[d];
       cn[d] = 1;
-      if (u < g.pad) {  // right halo of the previous tile
+      if (u < pad[d]) {  // right halo of the previous tile
         ct[d][1] = (t + g.nt[d] - 1) % g.nt[d];
-        ce[d][1] = u + g.tile[d] + g.pad;
+        ce[d][1] = u + g.tile[d] + pad[d];
         cn[d] = 2;
-      } else if (u >= g.tile[d] - g.pad) {  // left halo of the next
+      } else if (u >= g.tile[d] - pad[d]) {  // left halo of the next
         ct[d][1] = (t + 1) % g.nt[d];
-        ce[d][1] = u - g.tile[d] + g.pad;
+        ce[d][1] = u - g.tile[d] + pad[d];
         cn[d] = 2;
       }
     }
@@ -166,13 +186,14 @@ __global__ void truncate_deconvolve3d_kernel(
     for (int d = 2; d >= 0; --d) {
       m[d] = (int)(rem % g.n[d]);
       rem /= g.n[d];
-      slot[d] = (m[d] - g.n[d] / 2 + g.nf[d]) % g.nf[d];
+      slot[d] = d < g.axes ? (m[d] - g.n[d] / 2 + g.nf[d]) % g.nf[d] : m[d];
     }
     const long long b = rem;
     const float2 v =
         spec[((b * g.nf[0] + slot[0]) * g.nf[1] + slot[1]) * g.nf[2] +
              slot[2]];
-    const float wt = __fmul_rn(__fmul_rn(w0[m[0]], w1[m[1]]), w2[m[2]]);
+    float wt = __fmul_rn(w0[m[0]], w1[m[1]]);
+    if (g.axes == 3) wt = __fmul_rn(wt, w2[m[2]]);
     out[idx] = make_float2(__fmul_rn(v.x, wt), __fmul_rn(v.y, wt));
   }
 }
@@ -242,7 +263,8 @@ __global__ void extend_tiles3d_kernel(const float* __restrict__ fine,
 
 }  // namespace
 
-// fold3d: tiles [*tiles, 2B, *ext] float32 -> fine [B, *nf] complex64.
+// fold3d: tiles [*tiles, 2B, *ext] float32 -> fine [B, *nf] complex64
+// (kAxes = 2: y [nt0, nt1, 2B, E0, E1, n2] -> [B, nf0, nf1, n2]).
 extern "C" int tnt_fold3d(const void* tiles, void* fine, const int* ip,
                           void* stream) {
   const Grid3 g = grid_from(ip);
@@ -253,7 +275,8 @@ extern "C" int tnt_fold3d(const void* tiles, void* fine, const int* ip,
 }
 
 // truncate_deconvolve3d: spectrum [B, *nf] complex64 and the per-axis
-// deconvolution weights w_d [n_d] float32 -> out [B, *n, 2] float32.
+// deconvolution weights w_d [n_d] float32 -> out [B, *n, 2] float32
+// (kAxes = 2: nf2 = n2, axis 2 passed through and w2 unread).
 extern "C" int tnt_truncate_deconvolve3d(const void* spec, const void* w0,
                                          const void* w1, const void* w2,
                                          void* out, const int* ip,

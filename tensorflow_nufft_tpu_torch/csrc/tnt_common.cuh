@@ -21,11 +21,14 @@ constexpr int kMaxRank = 3;
 
 // Integer launch parameters, in this order (kernels/_build.py). Per-axis
 // entries past the rank are 1. kDerivAxis is the interp's phi' axis, -1
-// for none.
+// for none. The banded kernels also read kBand (axis-0 band rows), kSlab
+// (axis-0 rows a block owns or stages at a time), kSubLen (slots per
+// sub-chunk, the unit of a band origin) and kN2 (the fused epilogue's
+// axis-2 modes); the others take 0 there.
 enum IParam {
   kRank, kNt0, kNt1, kNt2, kTile0, kTile1, kTile2, kPad, kE0, kE1, kE2,
   kChunk, kBatch2, kGroup, kSlots, kWidth, kNHorner, kThreads, kSmem,
-  kDerivAxis, kNumIParams
+  kDerivAxis, kBand, kSlab, kSubLen, kN2, kNumIParams
 };
 // Float launch parameters; the Horner coefficients follow kHorner0.
 enum FParam { kHalfWidth, kC2, kBeta, kC, kHorner0 };
@@ -81,7 +84,24 @@ inline EsKernel es_from(const int* ip, const float* fp) {
   return k;
 }
 
-inline int num_tiles(const Geometry& g) {
+// The axis-0 band of the rank-3 banded kernels.
+struct Band {
+  int band;    // rows a sub-chunk touches, from its origin zorigins[j]
+  int slab;    // axis-0 rows per block (spread) or per staging (interp)
+  int sublen;  // slots per sub-chunk
+  int n2;      // fused epilogue: modes along axis 2
+};
+
+inline Band band_from(const int* ip) {
+  Band b;
+  b.band = ip[kBand];
+  b.slab = ip[kSlab];
+  b.sublen = ip[kSubLen];
+  b.n2 = ip[kN2];
+  return b;
+}
+
+__host__ __device__ inline int num_tiles(const Geometry& g) {
   return g.nt[0] * g.nt[1] * g.nt[2];
 }
 
@@ -152,6 +172,29 @@ __device__ __forceinline__ int es_window(float hi, float lo, float origin,
     }
   }
   return (int)fminf(fmaxf(f0, -1.0e8f), 1.0e8f);
+}
+
+// es_window of the banded kernels, with the kernel argument formed from
+// the fine-grid row: c = ceil(hi - w/2), z_j = ((c + j) - hi) - lo,
+// returning the start c - origin (origin: the extended-tile origin, plus
+// the band origin zo on axis 0). Every step but the last is exact, so z
+// does not depend on the tiling. es_window's s = hi - origin rounds where
+// it crosses a binade (tile 0, origin -pad: up to 7.6e-6 grid units for s
+// in [128, 136) at the binned level's tile 128), as the TPU kernels'
+// (hi - origin) - zo does: at the 3D headline that took the binned
+// level's err_impl from 4.7e-7 to 5.9e-6 on an H100 (PERF.md).
+__device__ __forceinline__ int es_window_exact(float hi, float lo,
+                                               float origin,
+                                               const EsKernel& k, float* w) {
+  const float c = ceilf(__fsub_rn(hi, k.half_width));
+#pragma unroll
+  for (int j = 0; j < kMaxWidth; ++j) {
+    if (j < k.width) {
+      const float z = __fsub_rn(__fsub_rn(__fadd_rn(c, (float)j), hi), lo);
+      w[j] = es_eval(z, k);
+    }
+  }
+  return (int)fminf(fmaxf(__fsub_rn(c, origin), -1.0e8f), 1.0e8f);
 }
 
 }  // namespace tnt

@@ -7,6 +7,14 @@ Counterpart of ``tensorflow_nufft_tpu.fft.planar_fft``
 DFTs because its backend has no complex FFT; here the DFT is cuFFT (or
 pocketfft on the CPU) through ``torch.fft``, on the full fine grid.
 
+``spread_dft_fused`` is the planned type-1 of ``kernels.pallas_dft.
+spread_dft_fused``: at the rank-3 binned level with a band, where the
+``FUSED_DFTA`` gate takes it, the fused route, the banded spread whose
+epilogue contracts axis 2 with the twiddles of ``dfta_twiddles``
+(``kernels.dispatch.spread_dfta``), then the two-axis fold, FFT and
+truncation of ``kernels.mode3d``; elsewhere the spread and the staged
+mode stage above.
+
 The steps around the FFT dispatch as the JAX rank-3 stages do
 (``planar_fft.py:143-150``, ``:244-250``): at rank 3 a CUDA tensor goes
 to the hand-written kernels of ``kernels.mode3d``; a CPU tensor, and
@@ -22,14 +30,30 @@ the working precision.
 
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
+import numpy as np
 import torch
 
-from tensorflow_nufft_tpu_torch.kernels import mode3d
-from tensorflow_nufft_tpu_torch.kernels.binning import TileGeometry
+from tensorflow_nufft_tpu_torch.kernels import dispatch, mode3d
+from tensorflow_nufft_tpu_torch.kernels.binning import (
+    BandInfo, BinnedPoints, KernelWeights, TileGeometry)
+from tensorflow_nufft_tpu_torch.plan.plan import make_plan
+
+# The planned rank-3 type-1 with a band takes the fused route (the banded
+# spread with the axis-2 DFT epilogue, then a two-axis mode stage) when
+# True, the banded spread and the three-axis stage when False. The staged
+# route is the default: it was the faster at the 3D headline on an H100
+# (chip_smoke.py's route phase; the times are in PERF.md). The fused route
+# keeps the tile array and the full fine grid out of device memory (y is
+# 107 MB per transform there, the tile array and grid 375 MB), for a
+# caller who needs that memory more than the time.
+FUSED_DFTA = False
 
 
-def _fft(x: torch.Tensor, fft_direction: str) -> torch.Tensor:
-    dims = tuple(range(1, x.ndim))
+def _fft(x: torch.Tensor, fft_direction: str, dims=None) -> torch.Tensor:
+    dims = tuple(range(1, x.ndim)) if dims is None else dims
     if fft_direction == "forward":
         return torch.fft.fftn(x, dim=dims)
     return torch.fft.ifftn(x, dim=dims, norm="forward")   # unnormalized
@@ -60,3 +84,85 @@ def amplify_pad_dft_tiled(modes: torch.Tensor, plan, geom: TileGeometry
     fine = _fft(mode3d.amplify_pad_plain(modes, plan),
                 plan.spec.fft_direction)
     return mode3d.extend_plain(fine, geom)
+
+
+def ext_mode_twiddles(nf: int, n: int, num_tiles: int, tile: int,
+                      pad: int, sign: float, weights: np.ndarray):
+    """The port's copy of the JAX package's
+    ``fft.planar_fft._ext_mode_twiddles`` (truncating form): [nt*E, n]
+    cos and sin matrices over the tile-extended axis, row (ti, e) the
+    fine index g = (ti*tile + e - pad) mod nf, times the deconvolution
+    weights, so that contracting extended rows with them does the
+    overlap-add, DFT, truncation and deconvolution of that axis."""
+    k = np.arange(n) - n // 2
+    slots = np.mod(k, nf)
+    ti = np.repeat(np.arange(num_tiles), tile + 2 * pad)
+    e = np.tile(np.arange(tile + 2 * pad), num_tiles)
+    g = np.mod(ti * tile + e - pad, nf)                  # [nt*E]
+    ang = (2.0 * np.pi / nf) * np.outer(g, slots)        # [nt*E, n]
+    return (np.cos(ang) * weights[None, :],
+            sign * np.sin(ang) * weights[None, :])
+
+
+@functools.lru_cache(maxsize=16)
+def _dfta_twiddles(spec, geom: TileGeometry, device) -> torch.Tensor:
+    plan = make_plan(spec)
+    sign = -1.0 if spec.fft_direction == "forward" else 1.0
+    c, s = ext_mode_twiddles(plan.fine_shape[2], plan.grid_shape[2],
+                             geom.tiles[2], geom.tile[2], geom.pad, sign,
+                             plan.deconv_weights(2))
+    shape = (geom.tiles[2], geom.ext[2], plan.grid_shape[2])
+    return torch.as_tensor(np.stack([m.reshape(shape).astype(np.float32)
+                                     for m in (c, s - c, s + c)]),
+                           device=device)
+
+
+def dfta_twiddles(plan, geom: TileGeometry, device) -> torch.Tensor:
+    """[3, nt2, E2, n2] float32 (c, s - c, s + c) axis-2 twiddles of the
+    fused epilogue, as the JAX package's ``pallas_dft._twiddle_statics``
+    builds its pass-A triple (float64, cast once); cached per plan spec,
+    geometry and device."""
+    return _dfta_twiddles(plan.spec, geom, torch.device(device))
+
+
+def fused_route(geom: TileGeometry, band: Optional[BandInfo]) -> bool:
+    """Whether a planned type-1 takes the fused route: rank 3 with an
+    active band, and the ``FUSED_DFTA`` gate."""
+    return FUSED_DFTA and band is not None and geom.rank == 3
+
+
+def dft_truncate_deconvolve_fused(y: torch.Tensor, plan,
+                                  geom: TileGeometry, batch: int
+                                  ) -> torch.Tensor:
+    """The fused route's mode stage: y [nt0, nt1, 2*batch, E0, E1, n2]
+    (axis 2 already transformed, truncated and deconvolved) -> modes
+    [batch, *grid_shape, 2]."""
+    direction = plan.spec.fft_direction
+    if y.is_cuda:
+        # cuFFT over the two leading axes returns a strided layout.
+        spec = _fft(mode3d.fold2_cuda(y, geom, batch), direction,
+                    (1, 2)).contiguous()
+        return mode3d.truncate_deconvolve2_cuda(spec, plan, geom)
+    spec = _fft(mode3d.fold_plain(y, geom, batch, axes=2), direction,
+                (1, 2))
+    return mode3d.truncate_deconvolve_plain(spec, plan, axes=2)
+
+
+def spread_dft_fused(values_pl: torch.Tensor, binned: BinnedPoints,
+                     geom: TileGeometry, plan, batch: int,
+                     kw: Optional[KernelWeights] = None,
+                     coords: Optional[torch.Tensor] = None,
+                     band: Optional[BandInfo] = None) -> torch.Tensor:
+    """Planned type-1 from slot-order values [2*batch, num_slots] (zero
+    in padded slots) -> modes [batch, *grid_shape, 2]: the fused route
+    where ``fused_route`` says so, else the spread and the staged mode
+    stage."""
+    if fused_route(geom, band):
+        y = dispatch.spread_dfta(values_pl, binned, geom, plan, coords,
+                                 band, dfta_twiddles(plan, geom,
+                                                     values_pl.device))
+        return dft_truncate_deconvolve_fused(y, plan, geom, batch)
+    tiles = dispatch.spread_tiled(None, binned, geom, plan, kw=kw,
+                                  coords=coords, band=band,
+                                  values_slots=values_pl)
+    return dft_truncate_deconvolve_tiled(tiles, plan, geom, batch)

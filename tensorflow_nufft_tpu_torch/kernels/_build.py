@@ -72,6 +72,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, i32p,
                        f32p, ptr]
         fn.restype = ctypes.c_int
+    # Banded: (fused, tile_bounds, zorigins, values, coords, twiddles, out,
+    # int params, float params, stream) and (tile_bounds, zorigins, tiles,
+    # coords, out, int params, float params, stream).
+    lib.tnt_spread_banded.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr, ptr,
+                                      ptr, i32p, f32p, ptr]
+    lib.tnt_spread_banded.restype = ctypes.c_int
+    lib.tnt_interp_banded.argtypes = [ptr, ptr, ptr, ptr, ptr, i32p, f32p,
+                                      ptr]
+    lib.tnt_interp_banded.restype = ctypes.c_int
     # Mode stages: (in, out, mode params, stream), and (in, w0, w1, w2,
     # out, mode params, stream) for the two that apply the weights.
     for name in ("tnt_fold3d", "tnt_extend_tiles3d"):
@@ -159,18 +168,21 @@ def _per_axis(values, rank: int):
 
 
 def kernel_params(geom, plan, batch2: int, group: int, threads: int,
-                  smem: int, deriv_axis: int = -1):
+                  smem: int, deriv_axis: int = -1, band: int = 0,
+                  slab: int = 0, sublen: int = 0, n2: int = 0):
     """The (int, float) host parameter arrays of a spread or interp
     launch, in the order of ``IParam``/``FParam`` in
     ``csrc/tnt_common.cuh``. ``deriv_axis`` (-1 for none) is the axis
-    whose window the unplanned interp evaluates as phi'."""
+    whose window the unplanned interp evaluates as phi'; ``band``,
+    ``slab``, ``sublen`` and ``n2`` are the banded kernels' (``Band``)."""
     horner = tuple(plan.horner) if plan.horner is not None else ()
     rank = geom.rank
     ints = ((rank,) + _per_axis(geom.tiles, rank)
             + _per_axis(geom.tile, rank) + (geom.pad,)
             + _per_axis(geom.ext, rank)
             + (geom.chunk, batch2, group, geom.num_slots, plan.width,
-               len(horner), threads, smem, deriv_axis))
+               len(horner), threads, smem, deriv_axis, band, slab, sublen,
+               n2))
     hw = float(plan.half_width)
     floats = (hw, 2.0 / (hw * hw), plan.beta, plan.c) + horner
     # ctypes.c_float rounds each double to float32, as the plain
@@ -179,11 +191,13 @@ def kernel_params(geom, plan, batch2: int, group: int, threads: int,
             (ctypes.c_float * len(floats))(*floats))
 
 
-def mode_params(geom, grid_shape, batch: int):
+def mode_params(geom, grid_shape, batch: int, axes: int = 3):
     """The int parameter array of a rank-3 mode-stage launch, in the
-    order of ``ModeParam`` in ``csrc/mode3d.cu``."""
+    order of ``ModeParam`` in ``csrc/mode3d.cu``: ``axes`` leading axes
+    tiled and transformed (2 for the fused route, whose ``geom`` then
+    describes [nt0, nt1, 1] tiles of (t0, t1, n2))."""
     ints = ((batch,) + tuple(geom.fine_shape) + tuple(grid_shape)
-            + tuple(geom.tiles) + tuple(geom.tile) + (geom.pad,))
+            + tuple(geom.tiles) + tuple(geom.tile) + (geom.pad, axes))
     return (ctypes.c_int * len(ints))(*ints)
 
 

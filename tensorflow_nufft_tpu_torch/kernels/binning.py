@@ -14,11 +14,16 @@ blocks and slot-order values directly. Binning is one stable int32 sort
 by tile id (the JAX package's ``_ranks_and_starts_bigm`` form), which
 keeps arrival order within a tile as its prefix-sum forms do.
 
-The planned artifact is ``KernelWeights``: per slot and per axis the
-``width`` kernel weights and the int window start. It replaces the dense
-per-chunk [sum(E), chunk] kernel matrices of the TPU path, which are
-mostly zeros (about 6 MB against 54 MB at 65,536 points on a 512^2 fine
-grid).
+The planned artifact of the "mats" plan level is ``KernelWeights``: per
+slot and per axis the ``width`` kernel weights and the int window start.
+It replaces the dense per-chunk [sum(E), chunk] kernel matrices of the
+TPU path, which are mostly zeros (about 6 MB against 54 MB at 65,536
+points on a 512^2 fine grid). Plans whose dense matrices would exceed
+``MATS_BYTES_BUDGET`` take the "binned" level instead, as the JAX
+package's do: they keep the coords payload, and at rank 3 bin in z-order
+on a coarse axis-0 geometry (``choose_geometry(banded=True)``,
+``bin_points(zorder=True)``) so that each sub-chunk touches only a
+``band`` of axis-0 rows (``compute_band_origins``).
 """
 
 from __future__ import annotations
@@ -80,14 +85,33 @@ _TILE_PREFS_3D = (
     (16, 24, 32, 40, 8, 64, 48, 96, 128),     # middle axis
     (64, 48, 96, 80, 40, 32, 128, 24, 16),    # last axis
 )
+# The binned level's rank-3 prefs: the axis-0 band bounds each
+# sub-chunk's work, so axis 0 goes coarse (fewer tiles, less padding).
+_TILE_PREFS_3D_BANDED = (
+    (128, 256, 64, 96, 192, 32, 16, 8),       # leading axis (banded)
+    (16, 24, 32, 40, 8, 64, 48, 96, 128),     # middle axis
+    (64, 48, 96, 80, 40, 32, 128, 24, 16),    # last axis
+)
+
+# Slots of one rank-3 sub-chunk: the unit of the axis-0 band (and of the
+# kernels' slot staging, kSub in csrc/spread.cu).
+SUB = 128
+
+# The dense [sum(E), chunk] matrices a JAX plan would precompute, in
+# bytes, above which PlannedNufft takes the binned level (the JAX
+# package's pallas_spread.MATS_BYTES_BUDGET). Tests lower it to reach the
+# binned level at small sizes.
+MATS_BYTES_BUDGET = 256 * 2 ** 20
 
 
 def choose_geometry(fine_shape: Sequence[int], width: int,
                     num_points: int, chunk: int = 0,
-                    tile_pref: int = 0) -> TileGeometry:
+                    tile_pref: int = 0,
+                    banded: bool = False) -> TileGeometry:
     """Picks tile dims that divide the fine grid and a chunk size, as
     the JAX package does (its tile preferences were tuned on a TPU;
-    retuning them for Hopper is later, measured work).
+    retuning them for Hopper is later, measured work). ``banded`` takes
+    the binned level's rank-3 prefs and chunk cap.
 
     The halo covers the kernel footprint: a point owned by a tile can
     touch indices down to ceil(s - w/2) >= tile_start - (w//2 + 1), so
@@ -98,7 +122,10 @@ def choose_geometry(fine_shape: Sequence[int], width: int,
     pad = -(-(width // 2 + 1) // 4) * 4
     tile = []
     for d, nf in enumerate(fine_shape):
-        prefs = _TILE_PREFS_3D[d] if rank == 3 else _TILE_PREFS[rank]
+        if rank == 3:
+            prefs = (_TILE_PREFS_3D_BANDED if banded else _TILE_PREFS_3D)[d]
+        else:
+            prefs = _TILE_PREFS[rank]
         prefs = ((tile_pref,) if tile_pref else ()) + prefs
         t = nf
         for cand in prefs:
@@ -116,7 +143,7 @@ def choose_geometry(fine_shape: Sequence[int], width: int,
     vmem_cap = max(256, ((2 << 20) // (4 * sum_ext)) // 256 * 256)
     chunk = min(chunk, vmem_cap)
     if rank == 3:
-        chunk = min(chunk, 1024)
+        chunk = min(chunk, 512 if banded else 1024)
     chunk = min(chunk, max(64, int(np.ceil(num_points / 64)) * 64))
     if rank == 3 and chunk > 128:
         chunk = -(-chunk // 128) * 128
@@ -128,6 +155,29 @@ def geometry_valid(geom: TileGeometry) -> bool:
     """Whether each tile covers both halo bands (tile >= 2*pad), which
     the periodic overlap-add needs."""
     return all(t >= 2 * geom.pad for t in geom.tile)
+
+
+def mats_supported(geom: TileGeometry) -> bool:
+    """Whether the JAX package's dense-matrix payload layout serves the
+    geometry (8-aligned extended dims, 128-aligned chunks)."""
+    return all(e % 8 == 0 for e in geom.ext) and geom.chunk % 128 == 0
+
+
+def mats_payload_bytes(geom: TileGeometry) -> int:
+    """Bytes of the dense per-chunk [sum(E), chunk] kernel matrices a JAX
+    plan of this geometry would precompute."""
+    return 4 * geom.num_chunks * geom.chunk * sum(geom.ext)
+
+
+def sort_cell_size(geom: TileGeometry) -> int:
+    """Axis-0 cell of z-ordered binning: fine enough that a sub-chunk's
+    axis-0 span stays tight, coarse enough that the (tile, cell) keys
+    stay few."""
+    t0 = geom.tile[0]
+    cell = max(2, t0 // 32)
+    while t0 % cell:
+        cell += 1
+    return cell
 
 
 class BinnedPoints(NamedTuple):
@@ -143,6 +193,14 @@ class BinnedPoints(NamedTuple):
     #                            chunks [b[t], b[t+1])
 
 
+class BandInfo(NamedTuple):
+    """The axis-0 band of a z-ordered rank-3 binning: sub-chunk j (of
+    ``SUB`` slots) touches only extended-tile rows [zorigins[j],
+    zorigins[j] + band)."""
+    band: int
+    zorigins: torch.Tensor     # [num_chunks * subs] int32
+
+
 class KernelWeights(NamedTuple):
     """Planned spread/interp artifact: per-slot separable kernel
     windows relative to the slot's extended tile. Padded slots (hi =
@@ -152,13 +210,17 @@ class KernelWeights(NamedTuple):
     starts: torch.Tensor       # [rank, num_slots] int32 window starts
 
 
-def bin_points(points_resc, geom: TileGeometry) -> BinnedPoints:
+def bin_points(points_resc, geom: TileGeometry,
+               zorder: bool = False) -> BinnedPoints:
     """Groups points by tile and builds the padded chunk stream.
 
     Args:
         points_resc: coordinates in fine-grid units ([0, nf)): a
             [M, rank] tensor or a two-float (hi, lo) pair.
         geom: static tiling.
+        zorder: order points within each tile by their axis-0 cell
+            (``sort_cell_size``), then by arrival, instead of by arrival
+            alone: the layout the axis-0 band needs.
     """
     if isinstance(points_resc, tuple):
         points_hi, points_lo = points_resc
@@ -177,13 +239,24 @@ def bin_points(points_resc, geom: TileGeometry) -> BinnedPoints:
             torch.floor_divide(points_hi[:, d], geom.tile[d]).to(i32),
             0, tiles[d] - 1)
         tid = td if tid is None else tid * tiles[d] + td
+        if d == 0:
+            tid0 = td
+    key = tid
+    if zorder:
+        cell = sort_cell_size(geom)
+        zcells = geom.tile[0] // cell
+        zc = torch.clamp(
+            torch.floor_divide(points_hi[:, 0], cell).to(i32)
+            - tid0 * zcells, 0, zcells - 1)
+        key = tid * zcells + zc
 
     counts = torch.bincount(tid, minlength=num_tiles).to(i32)
     rounds = torch.clamp((counts + chunk - 1) // chunk, min=1)
     chunk_starts = torch.cumsum(rounds, 0, dtype=i32) - rounds
-    # Stable sort keeps arrival order within each tile; a point's rank
-    # within its tile is its sorted position minus the tile's first.
-    order = torch.argsort(tid, stable=True)
+    # Stable sort keeps arrival order within each tile (and z-cell); a
+    # point's rank within its tile is its sorted position minus the
+    # tile's first.
+    order = torch.argsort(key, stable=True)
     tid_sorted = tid[order].long()
     first = torch.cumsum(counts, 0, dtype=i32) - counts
     pos = torch.arange(m, dtype=i32, device=device)
@@ -280,7 +353,8 @@ def slot_origins(tile_bounds: torch.Tensor, geom: TileGeometry,
 
 def slot_weights(coords: torch.Tensor, tile_bounds: torch.Tensor,
                  geom: TileGeometry, plan,
-                 deriv_axis: Optional[int] = None) -> KernelWeights:
+                 deriv_axis: Optional[int] = None,
+                 band: Optional[BandInfo] = None) -> KernelWeights:
     """Per-slot kernel windows from the coords payload.
 
     Axis d's window of a slot starts at i0 = ceil(s - w/2), where
@@ -289,6 +363,15 @@ def slot_weights(coords: torch.Tensor, tile_bounds: torch.Tensor,
     path's dense kernel matrices, evaluated by the same arithmetic.
     On ``deriv_axis`` the window holds phi' instead (the spread-only
     points gradients; ``pallas_spread.kernel_matrices_from``).
+
+    With ``band``: the banded kernels' windows (``es_window_exact`` in
+    ``csrc/tnt_common.cuh``). The argument is formed from the fine-grid
+    row, c = ceil(hi - w/2) and z_j = ((c + j) - hi) - lo, exact but for
+    the last step, so it does not round where s = hi - origin crosses a
+    binade (tile 0 of the coarse binned geometry); the start is c -
+    origin. Axis-0 rows outside the slot's sub-chunk band [zo, zo +
+    band) get weight 0 (they lie outside the kernel's support by the
+    band's construction, so this drops exact zeros).
     """
     rank = geom.rank
     origins = slot_origins(tile_bounds, geom, coords.dtype)
@@ -297,11 +380,22 @@ def slot_weights(coords: torch.Tensor, tile_bounds: torch.Tensor,
                       device=coords.device)
     weights, starts = [], []
     for d in range(rank):
-        s = coords[d] - origins[d]
-        i0 = torch.ceil(s - hw)
-        z = ((i0[:, None] + j[None, :]) - s[:, None]) \
-            - coords[rank + d][:, None]
-        weights.append(es_kernel_for(z, plan, deriv=d == deriv_axis))
+        hi, lo = coords[d], coords[rank + d]
+        if band is None:
+            s = hi - origins[d]
+            i0 = torch.ceil(s - hw)
+            z = ((i0[:, None] + j[None, :]) - s[:, None]) - lo[:, None]
+        else:
+            c = torch.ceil(hi - hw)
+            z = ((c[:, None] + j[None, :]) - hi[:, None]) - lo[:, None]
+            i0 = c - origins[d]
+        w = es_kernel_for(z, plan, deriv=d == deriv_axis)
+        if band is not None and d == 0:
+            zo = band.zorigins.repeat_interleave(
+                min(SUB, geom.chunk)).to(coords.dtype)
+            row = (i0 - zo)[:, None] + j[None, :]
+            w = torch.where((row >= 0) & (row < band.band), w, 0.0)
+        weights.append(w)
         i0 = torch.nan_to_num(i0, nan=-_START_LIMIT)
         starts.append(torch.clamp(i0, -_START_LIMIT, _START_LIMIT)
                       .to(torch.int32))
@@ -316,6 +410,55 @@ def build_weight_payload(binned: BinnedPoints, geom: TileGeometry,
                         geom, plan)
 
 
+def compute_band_origins(binned: BinnedPoints, geom: TileGeometry,
+                         half_width: float, sub: int = SUB):
+    """The axis-0 band of a z-ordered rank-3 binning (the JAX package's
+    ``binning.compute_band_origins``, a numpy pass at plan time).
+
+    Each ``sub``-slot sub-chunk touches only the extended-tile rows e
+    with a nonzero kernel weight, e in the open interval (s - hw, s + hw)
+    of some slot's axis-0 coordinate s: [floor(s_min - hw) + 1,
+    ceil(s_max + hw) - 1]. The 1e-3 slack covers the two-float low
+    words, which this high-word bound ignores.
+
+    Returns (band, zorigins): band, a multiple of 4 and at most E0 (E0
+    means the band degenerated), and the int32 [num_chunks * subs]
+    numpy array of band start rows, clamped to [0, E0 - band] (0 for
+    empty sub-chunks).
+    """
+    e0 = geom.ext[0]
+    chunk, nc = geom.chunk, geom.num_chunks
+    sublen = min(sub, chunk)
+    subs = -(-chunk // sublen)
+    z = binned.points_hi[:, 0].detach().cpu().numpy().astype(np.float64)
+    invpos = binned.invpos.cpu().numpy()
+    zs = np.concatenate([z, [np.nan]])[invpos]            # slot order
+    t0 = binned.chunk_tidx[0].cpu().numpy().astype(np.float64)
+    origin = t0 * geom.tile[0] - geom.pad                 # [NC]
+    s_ext = zs.reshape(nc, subs, sublen) - origin[:, None, None]
+    valid = np.isfinite(s_ext)
+    any_valid = valid.any(axis=-1)
+    mins = np.where(valid, s_ext, np.inf).min(axis=-1)
+    maxs = np.where(valid, s_ext, -np.inf).max(axis=-1)
+    lo = np.floor(mins - half_width - 1e-3) + 1.0
+    hi = np.ceil(maxs + half_width + 1e-3) - 1.0
+    need = np.where(any_valid, hi - lo + 1.0, 0.0)
+    band = int(need.max()) if need.size else 0
+    band = min(-(-max(band, 4) // 4) * 4, e0)
+    zo = np.where(any_valid, lo, 0.0)
+    zo = np.clip(zo, 0, e0 - band).astype(np.int32)
+    return band, zo.reshape(nc * subs)
+
+
+def slot_order_scalar(x: torch.Tensor, binned: BinnedPoints
+                      ) -> torch.Tensor:
+    """Point-order reals [M] -> slot order [num_slots], zero in padded
+    slots, in the points' dtype (one gather through ``invpos``): per-point
+    weights for ``PlannedNufft.normal``."""
+    x = x.to(binned.points_hi.dtype)
+    return torch.cat([x, x.new_zeros(1)])[binned.invpos.long()]
+
+
 def scatter_chunked(values: torch.Tensor, binned: BinnedPoints
                     ) -> torch.Tensor:
     """Slot-order values [R, num_slots] -> point order [R, M] (one
@@ -323,11 +466,14 @@ def scatter_chunked(values: torch.Tensor, binned: BinnedPoints
     return values[:, binned.padpos.long()]
 
 
-def overlap_add(tiles: torch.Tensor, geom: TileGeometry) -> torch.Tensor:
+def overlap_add(tiles: torch.Tensor, geom: TileGeometry,
+                axes: Optional[int] = None) -> torch.Tensor:
     """Per-tile extended blocks [*tiles, B, *ext] -> fine grid
     [B, *fine_shape], adding each halo band periodically onto the
-    neighbouring tile's core."""
-    rank, pad = geom.rank, geom.pad
+    neighbouring tile's core. With ``axes`` = a, only the first a axes
+    are tiled: [*tiles[:a], B, *ext[:a], *rest] -> [B, *fine[:a], *rest]
+    (the fused type-1 route's [nt0, nt1, B2, E0, E1, n2])."""
+    rank, pad = axes or geom.rank, geom.pad
     x = tiles
     for d in range(rank):
         tile_ax, ext_ax = d, rank + 1 + d
@@ -342,8 +488,10 @@ def overlap_add(tiles: torch.Tensor, geom: TileGeometry) -> torch.Tensor:
     perm = [rank]
     for d in range(rank):
         perm.extend([d, rank + 1 + d])
-    x = x.permute(perm)
-    return x.reshape((x.shape[0],) + geom.fine_shape)
+    rest = tuple(range(2 * rank + 1, x.ndim))
+    x = x.permute(perm + list(rest))
+    return x.reshape((x.shape[0],) + geom.fine_shape[:rank]
+                     + tuple(x.shape[2 * rank + 1:]))
 
 
 def extend_tiles(fine: torch.Tensor, geom: TileGeometry) -> torch.Tensor:

@@ -2,8 +2,10 @@
 
 Counterpart of the spread/interp entry points of
 ``tensorflow_nufft_tpu.kernels.dispatch``: the tiled ones of the
-transforms, the full-fine-grid ``spread``/``interp`` of the spread-only
-ops and ``interp_deriv`` of their points gradients. A CUDA tensor goes
+transforms (with the planned levels' inputs: windows, or coords and the
+rank-3 band, and slot-order values in or out), the fused banded spread
+of the type-1 route, the full-fine-grid ``spread``/``interp`` of the
+spread-only ops and ``interp_deriv`` of their points gradients. A CUDA tensor goes
 to the hand-written kernel (which raises on what it does not take, such
 as float64); a CPU tensor goes to the plain PyTorch version. There is no
 other branch and no fallback.
@@ -25,52 +27,97 @@ from tensorflow_nufft_tpu_torch.kernels import binning, mode3d
 from tensorflow_nufft_tpu_torch.kernels import interp as interp_k
 from tensorflow_nufft_tpu_torch.kernels import spread as spread_k
 from tensorflow_nufft_tpu_torch.kernels.binning import (
-    BinnedPoints, KernelWeights, TileGeometry)
+    BandInfo, BinnedPoints, KernelWeights, TileGeometry)
 
 
-def spread_tiled(values_cm: torch.Tensor, binned: BinnedPoints,
+def spread_tiled(values_cm: Optional[torch.Tensor], binned: BinnedPoints,
                  geom: TileGeometry, plan,
-                 kw: Optional[KernelWeights] = None) -> torch.Tensor:
+                 kw: Optional[KernelWeights] = None,
+                 coords: Optional[torch.Tensor] = None,
+                 band: Optional[BandInfo] = None,
+                 values_slots: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Channel-major values [B2, M] -> tiles [*tiles, B2, *ext].
 
-    ``kw`` (a planned transform's windows) selects the planned kernel;
-    without it the kernel evaluates the windows from the coords payload.
+    ``kw`` (a "mats" plan's windows) selects the planned kernel; without
+    it the kernel evaluates the windows from ``coords`` (built here if
+    not given), with ``band`` (a rank-3 "binned" plan) the banded one.
+    ``values_slots`` [B2, num_slots] (slot order, zero in padded slots)
+    replaces ``values_cm`` and skips its gather.
     """
-    values_pl = binning.build_values_payload(values_cm, binned)
-    coords = None if kw is not None else binning.build_coords_payload(binned)
+    values_pl = (values_slots.contiguous() if values_slots is not None
+                 else binning.build_values_payload(values_cm, binned))
+    if kw is None and coords is None:
+        coords = binning.build_coords_payload(binned)
+    tb = binned.tile_bounds
     if values_pl.is_cuda:
         if kw is not None:
-            return spread_k.spread_planned_cuda(
-                values_pl, binned.tile_bounds, geom, plan, kw)
-        return spread_k.spread_unplanned_cuda(
-            values_pl, binned.tile_bounds, geom, plan, coords)
-    return spread_k.spread_tiles_plain(values_pl, binned.tile_bounds,
-                                       geom, plan, kw=kw, coords=coords)
+            return spread_k.spread_planned_cuda(values_pl, tb, geom, plan,
+                                                kw)
+        if band is not None:
+            return spread_k.spread_banded_cuda(values_pl, tb, geom, plan,
+                                               coords, band)
+        return spread_k.spread_unplanned_cuda(values_pl, tb, geom, plan,
+                                              coords)
+    return spread_k.spread_tiles_plain(values_pl, tb, geom, plan, kw=kw,
+                                       coords=coords, band=band)
+
+
+def spread_dfta(values_pl: torch.Tensor, binned: BinnedPoints,
+                geom: TileGeometry, plan, coords: torch.Tensor,
+                band: BandInfo, twiddles: torch.Tensor) -> torch.Tensor:
+    """Slot-order values [B2, num_slots] -> y [nt0, nt1, B2, E0, E1, n2]:
+    the banded spread with its axis-2 DFT epilogue (the fused type-1
+    route of ``fft.planar_fft.spread_dft_fused``)."""
+    tb = binned.tile_bounds
+    if values_pl.is_cuda:
+        return spread_k.spread_dfta_cuda(values_pl.contiguous(), tb, geom,
+                                         plan, coords, band, twiddles)
+    tiles = spread_k.spread_tiles_plain(values_pl, tb, geom, plan,
+                                        coords=coords, band=band)
+    return spread_k.dfta_plain(tiles, twiddles)
+
+
+def _slot_order(chunk_vals: torch.Tensor, geom: TileGeometry
+                ) -> torch.Tensor:
+    """[num_chunks, B2, chunk] kernel output -> slot order [B2, slots]."""
+    batch2 = chunk_vals.shape[1]
+    return chunk_vals.transpose(0, 1).reshape(batch2, geom.num_slots)
 
 
 def _point_order(chunk_vals: torch.Tensor, binned: BinnedPoints,
                  geom: TileGeometry) -> torch.Tensor:
     """[num_chunks, B2, chunk] slot-order kernel output -> [B2, M]."""
-    batch2 = chunk_vals.shape[1]
-    flat = chunk_vals.transpose(0, 1).reshape(batch2, geom.num_slots)
-    return binning.scatter_chunked(flat, binned)
+    return binning.scatter_chunked(_slot_order(chunk_vals, geom), binned)
 
 
 def interp_tiled(tiles: torch.Tensor, binned: BinnedPoints,
                  geom: TileGeometry, plan,
-                 kw: Optional[KernelWeights] = None) -> torch.Tensor:
-    """Tiles [*tiles, B2, *ext] -> point-order values [B2, M]."""
-    coords = None if kw is not None else binning.build_coords_payload(binned)
+                 kw: Optional[KernelWeights] = None,
+                 coords: Optional[torch.Tensor] = None,
+                 band: Optional[BandInfo] = None,
+                 chunk_order: bool = False) -> torch.Tensor:
+    """Tiles [*tiles, B2, *ext] -> point-order values [B2, M], or with
+    ``chunk_order`` slot-order values [B2, num_slots] (zero in padded
+    slots and unused chunks). Kernel choice as ``spread_tiled``."""
+    if kw is None and coords is None:
+        coords = binning.build_coords_payload(binned)
+    tb = binned.tile_bounds
     if tiles.is_cuda:
         if kw is not None:
-            chunk_vals = interp_k.interp_planned_cuda(
-                tiles, binned.tile_bounds, geom, plan, kw)
+            chunk_vals = interp_k.interp_planned_cuda(tiles, tb, geom, plan,
+                                                      kw)
+        elif band is not None:
+            chunk_vals = interp_k.interp_banded_cuda(tiles, tb, geom, plan,
+                                                     coords, band)
         else:
-            chunk_vals = interp_k.interp_unplanned_cuda(
-                tiles, binned.tile_bounds, geom, plan, coords)
+            chunk_vals = interp_k.interp_unplanned_cuda(tiles, tb, geom,
+                                                        plan, coords)
     else:
         chunk_vals = interp_k.interp_tiles_plain(
-            tiles, binned.tile_bounds, geom, plan, kw=kw, coords=coords)
+            tiles, tb, geom, plan, kw=kw, coords=coords, band=band)
+    if chunk_order:
+        return _slot_order(chunk_vals, geom)
     return _point_order(chunk_vals, binned, geom)
 
 

@@ -1,30 +1,33 @@
 """Interp: per-tile halo-padded blocks -> slot-order point values.
 
 Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_interp`` (ranks 2
-and 3). Two entry points launch the hand-written Hopper kernel of
-``csrc/interp.cu``, one per weight source:
+and 3). Four entry points launch the hand-written Hopper kernels of
+``csrc/interp.cu``:
 
 - ``interp_planned_cuda`` replaces ``pallas_interp._interp_kernel_
   resident_mats`` (rank 2) and ``_interp_kernel_mats`` (the rank-3
   per-tile grid): precomputed per-slot windows (``KernelWeights``).
-  Where the JAX plan cannot keep its dense matrices (the 3D headline)
-  it runs ``_interp_kernel_banded`` on the same tile blocks instead.
 - ``interp_unplanned_cuda`` replaces ``pallas_interp._interp_kernel``
   (ranks 2 and 3): windows evaluated in the kernel from the coords
   payload.
 - ``interp_deriv_cuda`` is the same kernel with ``_interp_kernel``'s
   ``deriv_axis`` flag: the window of one axis holds the kernel's
   derivative phi' (the points gradients of the spread-only ops).
+- ``interp_banded_cuda`` replaces ``pallas_interp._interp_kernel_
+  banded``: the planned rank-3 binned level, each sub-chunk reading only
+  its band of axis-0 rows (``binning.BandInfo``), windows evaluated in
+  the kernel.
 
-``interp_tiles_plain`` is the plain PyTorch version of all three. Outputs are
+``interp_tiles_plain`` is the plain PyTorch version of all four. Outputs are
 [num_chunks, B2, chunk] in slot order, as the TPU kernels write them;
 ``binning.scatter_chunked`` brings them to point order. Each CUDA entry
 point counts its launches in its ``launches`` attribute.
 
 What bounds the kernel on the H100 and what its design does about it is
 in the source note of ``csrc/interp.cu``: one block per tile and channel
-group stages the tile's block in shared memory and one thread per slot
-forms its windows and contracts them with the block.
+group (per sub-chunk and channel group, banded) stages the tile's block
+(its band rows) in shared memory and one thread per slot forms its
+windows and contracts them with the block.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 
 from tensorflow_nufft_tpu_torch.kernels import _build, binning
 from tensorflow_nufft_tpu_torch.kernels.binning import (
-    KernelWeights, TileGeometry)
+    SUB, BandInfo, KernelWeights, TileGeometry)
 
 _THREADS = 256
 
@@ -127,20 +130,75 @@ interp_unplanned_cuda.launches = 0
 interp_deriv_cuda.launches = 0
 
 
+def banded_shape(geom: TileGeometry, batch2: int, band: int):
+    """(group, slab, threads, smem bytes) of a banded interp launch: the
+    channel group and axis-0 rows staged at a time ([group, slab, E1,
+    E2] in shared memory; the whole band where it fits for one channel)
+    and one thread per (channel, slot) of a sub-chunk."""
+    plane = 4 * geom.ext[1] * geom.ext[2]
+    sublen = min(SUB, geom.chunk)
+    slab = min(band, _build.SMEM_LIMIT // plane)
+    if slab < 1:
+        raise ValueError(
+            f"banded interp kernel: one axis-0 row of ext {geom.ext} does "
+            f"not fit one thread block's shared memory")
+    slab = -(-band // -(-band // slab))
+    group = min(batch2, _build.SMEM_LIMIT // (plane * slab), 1024 // sublen)
+    return group, slab, group * sublen, group * slab * plane
+
+
+def interp_banded_cuda(tiles: torch.Tensor, tile_bounds: torch.Tensor,
+                       geom: TileGeometry, plan, coords: torch.Tensor,
+                       band: BandInfo) -> torch.Tensor:
+    """Hopper banded interp (rank 3, z-ordered binning): tiles
+    [*tiles, B2, *ext] -> [num_chunks, B2, chunk] (float32)."""
+    if geom.rank != 3:
+        raise NotImplementedError("the banded interp kernel is rank 3")
+    batch2, slots = tiles.shape[3], geom.num_slots
+    sublen = min(SUB, geom.chunk)
+    need = functools.partial(_build.require_cuda, "banded interp")
+    need(tiles, "tiles", torch.float32, geom.tiles + (batch2,) + geom.ext)
+    need(tile_bounds, "tile_bounds", torch.int32, (geom.num_tiles + 1,))
+    need(coords, "coords", torch.float32, (6, slots))
+    need(band.zorigins, "zorigins", torch.int32, (slots // sublen,))
+    group, slab, threads, smem = banded_shape(geom, batch2, band.band)
+    lib = _build.library()
+    ints, floats = _build.kernel_params(
+        geom, plan, batch2, group, threads, smem, band=band.band,
+        slab=slab, sublen=sublen)
+    # Zeros: chunks past tile_bounds[-1] are never written by the kernel.
+    out = torch.zeros((geom.num_chunks, batch2, geom.chunk),
+                      dtype=torch.float32, device=tiles.device)
+    with torch.cuda.device(tiles.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tnt_interp_banded(
+            tile_bounds.data_ptr(), band.zorigins.data_ptr(),
+            tiles.data_ptr(), coords.data_ptr(), out.data_ptr(), ints,
+            floats, stream)
+    _build.check(rc, "banded interp kernel launch")
+    interp_banded_cuda.launches += 1
+    return out
+
+
+interp_banded_cuda.launches = 0
+
+
 def interp_tiles_plain(tiles: torch.Tensor, tile_bounds: torch.Tensor,
                        geom: TileGeometry, plan,
                        kw: Optional[KernelWeights] = None,
                        coords: Optional[torch.Tensor] = None,
-                       deriv_axis: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch interp, the same function as the kernel: tiles
+                       deriv_axis: Optional[int] = None,
+                       band: Optional[BandInfo] = None) -> torch.Tensor:
+    """Plain PyTorch interp, the same function as the kernels: tiles
     [*tiles, B2, *ext] -> [num_chunks, B2, chunk], from the planned
-    windows ``kw`` or from ``coords`` (with phi' on ``deriv_axis``).
+    windows ``kw`` or from ``coords`` (with phi' on ``deriv_axis``; with
+    ``band``, the banded kernel's axis-0 windows).
     Any float dtype. Per leading-axis window offset, one [B2, slots,
     width] gather contracted with the last axis's window, then weighted
     by the leading-axis product, as the kernel does."""
     if kw is None:
         kw = binning.slot_weights(coords, tile_bounds, geom, plan,
-                                  deriv_axis)
+                                  deriv_axis, band)
     batch2 = tiles.shape[geom.rank]
     ext, rank, width = geom.ext, geom.rank, plan.width
     cells = int(np.prod(ext))

@@ -10,12 +10,18 @@ hand-written Hopper kernels of ``csrc/mode3d.cu``, one per entry point:
 - ``fold3d_cuda`` and ``truncate_deconvolve3d_cuda`` replace the type-1
   passes ``_pass_a_kernel``, ``_pass_b_kernel`` and ``_pass_c_kernel``;
 - ``amplify_pad3d_cuda`` and ``extend_tiles3d_cuda`` replace the type-2
-  passes ``_dual_c_kernel``, ``_dual_b_kernel`` and ``_dual_a_kernel``.
+  passes ``_dual_c_kernel``, ``_dual_b_kernel`` and ``_dual_a_kernel``;
+- ``fold2_cuda`` and ``truncate_deconvolve2_cuda``, their two-axis
+  variants, replace passes ``_pass_b_kernel`` and ``_pass_c_kernel`` on
+  the fused type-1 route (``pallas_dft._run_passes_bc``), after the
+  banded spread whose epilogue contracted axis 2 (``spread.
+  spread_dfta_cuda``): they fold and truncate axes 0 and 1 of
+  y [nt0, nt1, B2, E0, E1, n2] around a two-axis cuFFT.
 
 The kernels take rank 3 and float32. Each has a plain PyTorch version of
 the same function (any rank, float32 or float64): ``fold_plain``,
-``truncate_deconvolve_plain``, ``amplify_pad_plain`` and
-``extend_plain``. ``fft.planar_fft`` uses the plain versions for CPU
+``truncate_deconvolve_plain`` (both with ``axes=2`` for the two-axis
+variants), ``amplify_pad_plain`` and ``extend_plain``. ``fft.planar_fft`` uses the plain versions for CPU
 tensors and for rank 2 (which the JAX package also keeps out of Pallas),
 and ``chip_smoke.py`` holds each kernel to its plain version on the card.
 Each CUDA entry point counts its launches in its ``launches`` attribute.
@@ -50,11 +56,12 @@ def deconv_weights(plan, dim: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(w, device=device)
 
 
-def _separable_weights(plan, dtype, device) -> torch.Tensor:
+def _separable_weights(plan, dtype, device, axes=None) -> torch.Tensor:
     """[n0, n1, ...] outer product of the per-axis deconvolution
-    weights, in the kernels' product order ((w0 * w1) * w2)."""
+    weights of the first ``axes`` axes (all by default), in the kernels'
+    product order ((w0 * w1) * w2)."""
     w = None
-    for d in range(plan.rank):
+    for d in range(axes or plan.rank):
         wd = deconv_weights(plan, d, dtype, device)
         w = wd if w is None else w[..., None] * wd
     return w
@@ -71,24 +78,31 @@ def on_kernels(x: torch.Tensor, rank: int) -> bool:
 # Plain PyTorch versions (any rank)
 # ---------------------------------------------------------------------------
 
-def fold_plain(tiles: torch.Tensor, geom: TileGeometry, batch: int
-               ) -> torch.Tensor:
+def fold_plain(tiles: torch.Tensor, geom: TileGeometry, batch: int,
+               axes=None) -> torch.Tensor:
     """Tiles [*tiles, 2*batch, *ext] (row order (b, re/im)) -> complex
-    fine grid [batch, *fine]: the periodic overlap-add of the halos."""
-    fine = overlap_add(tiles, geom).reshape((batch, 2) + geom.fine_shape)
+    fine grid [batch, *fine]: the periodic overlap-add of the halos.
+    ``axes=2``: y [nt0, nt1, 2*batch, E0, E1, n2] -> [batch, nf0, nf1,
+    n2], axis 2 untiled."""
+    fine = overlap_add(tiles, geom, axes)
+    fine = fine.reshape((batch, 2) + tuple(fine.shape[1:]))
     return torch.complex(fine[:, 0], fine[:, 1])
 
 
-def truncate_deconvolve_plain(spec: torch.Tensor, plan) -> torch.Tensor:
+def truncate_deconvolve_plain(spec: torch.Tensor, plan, axes=None
+                              ) -> torch.Tensor:
     """Complex spectrum [batch, *fine] -> planar modes
     [batch, *grid_shape, 2]: the spectrum at the mode slots, times the
-    separable deconvolution weights."""
+    separable deconvolution weights. ``axes=2``: only axes 0 and 1 (the
+    input's axis 2 already holds its modes, weighted)."""
     real = spec.real.dtype
-    for d in range(plan.rank):
+    axes = axes or plan.rank
+    for d in range(axes):
         spec = spec.index_select(
             1 + d, mode_slots(plan.grid_shape[d], plan.fine_shape[d],
                               spec.device))
-    spec = spec * _separable_weights(plan, real, spec.device)
+    w = _separable_weights(plan, real, spec.device, axes)
+    spec = spec * w.reshape(w.shape + (1,) * (plan.rank - axes))
     return torch.view_as_real(spec).contiguous()
 
 
@@ -211,7 +225,52 @@ def extend_tiles3d_cuda(fine: torch.Tensor, geom: TileGeometry
     return tiles
 
 
+def _modes2_geometry(geom: TileGeometry, n2: int) -> TileGeometry:
+    """The fused route's y as a tiling: axes 0 and 1 as ``geom``'s, axis
+    2 one untiled block of its n2 modes."""
+    return TileGeometry(geom.fine_shape[:2] + (n2,), geom.tile[:2] + (n2,),
+                        geom.pad, geom.chunk, geom.num_chunks)
+
+
+def fold2_cuda(y: torch.Tensor, geom: TileGeometry, batch: int
+               ) -> torch.Tensor:
+    """Hopper ``fold_plain(axes=2)``: y [nt0, nt1, 2*batch, E0, E1, n2]
+    float32 -> complex64 [batch, nf0, nf1, n2]."""
+    _rank3("fold2", geom)
+    n2 = y.shape[-1]
+    _build.require_cuda("fold2", y, "y", torch.float32,
+                        geom.tiles[:2] + (2 * batch,) + geom.ext[:2]
+                        + (n2,))
+    g2 = _modes2_geometry(geom, n2)
+    fine = torch.empty((batch,) + g2.fine_shape, dtype=torch.complex64,
+                       device=y.device)
+    _run("tnt_fold3d", y, fine, _build.mode_params(g2, (1, 1, 1), batch, 2))
+    fold2_cuda.launches += 1
+    return fine
+
+
+def truncate_deconvolve2_cuda(spec: torch.Tensor, plan, geom: TileGeometry
+                              ) -> torch.Tensor:
+    """Hopper ``truncate_deconvolve_plain(axes=2)``: complex64 spectrum
+    [batch, nf0, nf1, n2] -> float32 planar modes [batch, *grid_shape,
+    2]."""
+    _rank3("truncate_deconvolve2", geom)
+    batch, n2 = spec.shape[0], plan.grid_shape[2]
+    g2 = _modes2_geometry(geom, n2)
+    _build.require_cuda("truncate_deconvolve2", spec, "spectrum",
+                        torch.complex64, (batch,) + g2.fine_shape)
+    w0, w1, w2 = _weights3(plan, spec.device)
+    out = torch.empty((batch,) + tuple(plan.grid_shape) + (2,),
+                      dtype=torch.float32, device=spec.device)
+    _run("tnt_truncate_deconvolve3d", spec, w0, w1, w2, out,
+         _build.mode_params(g2, plan.grid_shape, batch, 2))
+    truncate_deconvolve2_cuda.launches += 1
+    return out
+
+
 fold3d_cuda.launches = 0
+fold2_cuda.launches = 0
+truncate_deconvolve2_cuda.launches = 0
 truncate_deconvolve3d_cuda.launches = 0
 amplify_pad3d_cuda.launches = 0
 extend_tiles3d_cuda.launches = 0

@@ -1,15 +1,12 @@
 """Spread: slot-order point values -> per-tile halo-padded blocks.
 
 Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_spread`` (ranks 2
-and 3). Two entry points launch the hand-written Hopper kernel of
-``csrc/spread.cu``, one per weight source:
+and 3). Four entry points launch the hand-written Hopper kernels of
+``csrc/spread.cu``:
 
 - ``spread_planned_cuda`` replaces ``pallas_spread._spread_kernel_
   resident_mats`` (rank 2) and ``_spread_kernel_mats`` (the rank-3
   per-tile grid): precomputed per-slot windows (``KernelWeights``).
-  Where the JAX plan cannot keep its dense matrices (the 3D headline)
-  it runs ``_spread_kernel_banded``, whose tile blocks this computes on
-  the unbanded geometry.
 - ``spread_unplanned_cuda`` replaces ``pallas_spread._spread_kernel_
   resident`` (rank 2) and ``_spread_kernel`` (rank 3): windows evaluated
   in the kernel from the coords payload. It also replaces the wide-
@@ -19,13 +16,25 @@ and 3). Two entry points launch the hand-written Hopper kernel of
   8: training's source and points gradients): coords and values are
   separate payloads here at every width, and channels beyond one
   block's group go to the launch grid's second dimension, the last
-  group partial (``launch_shape``). The split pair's slot-order input
-  (``values_slots``, of ``PlannedNufft.normal``) is not ported yet.
+  group partial (``launch_shape``). Values are always read in slot
+  order, so the split pair's slot-order input (``values_slots``, of
+  ``PlannedNufft.normal`` and ``apply_from_slots``) only skips the
+  caller's gather (``dispatch.spread_tiled``).
+- ``spread_banded_cuda`` replaces ``pallas_spread._spread_kernel_
+  banded`` and ``_spread_kernel_split_banded``: the planned rank-3
+  binned level, z-ordered binning whose sub-chunks touch only a band of
+  axis-0 rows (``binning.BandInfo``), windows evaluated in the kernel.
+  A block owns an axis-0 slab of a tile for a channel pair
+  (``banded_shape``).
+- ``spread_dfta_cuda`` replaces ``pallas_spread._spread_kernel_split_
+  banded_dfta``: the banded spread with the axis-2 mode-DFT pass as an
+  epilogue, returning y [nt0, nt1, B2, E0, E1, n2].
 
-``spread_tiles_plain`` is the plain PyTorch version of both; the
-dispatcher uses it for CPU tensors and ``chip_smoke.py`` holds the kernel
-to it on the card. Each CUDA entry point counts its launches in its
-``launches`` attribute.
+``spread_tiles_plain`` is the plain PyTorch version of the first three
+(``dfta_plain`` adds the epilogue's); the dispatcher uses them for CPU
+tensors and ``chip_smoke.py`` holds each kernel to them on the card.
+Each CUDA entry point counts its launches in its ``launches``
+attribute.
 
 What bounds the kernel on the H100 and what its design does about it is
 in the source note of ``csrc/spread.cu``; in short: one block per tile
@@ -46,10 +55,7 @@ import torch
 
 from tensorflow_nufft_tpu_torch.kernels import _build, binning
 from tensorflow_nufft_tpu_torch.kernels.binning import (
-    KernelWeights, TileGeometry)
-
-# Slots staged in shared memory at a time (kSub in csrc/spread.cu).
-_SUB = 128
+    SUB, BandInfo, KernelWeights, TileGeometry)
 
 
 def launch_shape(geom: TileGeometry, batch2: int, width: int):
@@ -59,8 +65,8 @@ def launch_shape(geom: TileGeometry, batch2: int, width: int):
     block."""
     rows = int(np.prod(geom.ext[:-1]))
     cells = rows * geom.ext[-1]
-    staging = 4 * geom.rank * (_SUB * width + _SUB)
-    per_channel = 4 * (cells + _SUB)
+    staging = 4 * geom.rank * (SUB * width + SUB)
+    per_channel = 4 * (cells + SUB)
     group = min(batch2, 1024 // rows,
                 (_build.SMEM_LIMIT - staging) // per_channel)
     if group < 1:
@@ -127,19 +133,111 @@ spread_planned_cuda.launches = 0
 spread_unplanned_cuda.launches = 0
 
 
+def banded_shape(geom: TileGeometry, batch2: int, width: int,
+                 fused: bool = False):
+    """(group, slab, threads, smem bytes) of a banded spread launch: a
+    channel pair (the fused epilogue needs one) and the most axis-0 rows
+    whose [group, slab, E1, E2] block, staging buffers and one thread per
+    (channel, e0, e1) row fit one Hopper block, evened out over E0."""
+    group = 2 if fused else min(batch2, 2)
+    e0, e1, e2 = geom.ext
+    staging = 4 * (3 * (SUB * width + SUB) + group * SUB)
+    most = min((_build.SMEM_LIMIT - staging) // (4 * group * e1 * e2),
+               1024 // (group * e1), e0)
+    if most < 1:
+        raise ValueError(
+            f"banded spread kernel: one axis-0 row of ext {geom.ext} does "
+            f"not fit one thread block")
+    slab = -(-e0 // -(-e0 // most))
+    threads = -(-group * slab * e1 // 32) * 32
+    return group, slab, threads, staging + 4 * group * slab * e1 * e2
+
+
+def _launch_banded(values_pl, tile_bounds, geom: TileGeometry, plan,
+                   coords, band: BandInfo, twiddles=None):
+    if geom.rank != 3:
+        raise NotImplementedError("the banded spread kernel is rank 3")
+    fused = twiddles is not None
+    batch2, slots = values_pl.shape[0], geom.num_slots
+    sublen = min(SUB, geom.chunk)
+    f32, i32 = torch.float32, torch.int32
+    need = functools.partial(_build.require_cuda, "banded spread")
+    need(values_pl, "values", f32, (batch2, slots))
+    need(tile_bounds, "tile_bounds", i32, (geom.num_tiles + 1,))
+    need(coords, "coords", f32, (6, slots))
+    need(band.zorigins, "zorigins", i32, (slots // sublen,))
+    group, slab, threads, smem = banded_shape(geom, batch2, plan.width,
+                                              fused)
+    if fused:
+        n2 = twiddles.shape[-1]
+        need(twiddles, "twiddles", f32,
+             (3, geom.tiles[2], geom.ext[2], n2))
+        if batch2 % 2:
+            raise ValueError("the fused banded spread takes (re, im) "
+                             "channel pairs")
+        shape = geom.tiles[:2] + (batch2,) + geom.ext[:2] + (n2,)
+    else:
+        n2 = 0
+        shape = (geom.num_tiles, batch2) + geom.ext
+    lib = _build.library()
+    ints, floats = _build.kernel_params(
+        geom, plan, batch2, group, threads, smem, band=band.band,
+        slab=slab, sublen=sublen, n2=n2)
+    out = torch.empty(shape, dtype=f32, device=values_pl.device)
+    with torch.cuda.device(values_pl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tnt_spread_banded(
+            int(fused), tile_bounds.data_ptr(), band.zorigins.data_ptr(),
+            values_pl.data_ptr(), coords.data_ptr(),
+            twiddles.data_ptr() if fused else 0, out.data_ptr(), ints,
+            floats, stream)
+    _build.check(rc, "banded spread kernel launch")
+    if fused:
+        return out
+    return out.reshape(geom.tiles + (batch2,) + geom.ext)
+
+
+def spread_banded_cuda(values_pl: torch.Tensor, tile_bounds: torch.Tensor,
+                       geom: TileGeometry, plan, coords: torch.Tensor,
+                       band: BandInfo) -> torch.Tensor:
+    """Hopper banded spread (rank 3, z-ordered binning): values
+    [B2, slots] -> tiles [*tiles, B2, *ext] (float32)."""
+    out = _launch_banded(values_pl, tile_bounds, geom, plan, coords, band)
+    spread_banded_cuda.launches += 1
+    return out
+
+
+def spread_dfta_cuda(values_pl: torch.Tensor, tile_bounds: torch.Tensor,
+                     geom: TileGeometry, plan, coords: torch.Tensor,
+                     band: BandInfo, twiddles: torch.Tensor) -> torch.Tensor:
+    """Hopper banded spread with the fused axis-2 DFT epilogue: values
+    [B2, slots] and the twiddles [3, nt2, E2, n2] (c, s - c, s + c) ->
+    y [nt0, nt1, B2, E0, E1, n2] (float32)."""
+    out = _launch_banded(values_pl, tile_bounds, geom, plan, coords, band,
+                         twiddles)
+    spread_dfta_cuda.launches += 1
+    return out
+
+
+spread_banded_cuda.launches = 0
+spread_dfta_cuda.launches = 0
+
+
 def spread_tiles_plain(values_pl: torch.Tensor, tile_bounds: torch.Tensor,
                        geom: TileGeometry, plan,
                        kw: Optional[KernelWeights] = None,
-                       coords: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """Plain PyTorch spread, the same function as the kernel: values
+                       coords: Optional[torch.Tensor] = None,
+                       band: Optional[BandInfo] = None) -> torch.Tensor:
+    """Plain PyTorch spread, the same function as the kernels: values
     [B2, slots] -> [*tiles, B2, *ext], from the planned windows ``kw``
-    or from ``coords``. Any float dtype; sums with ``index_add_``, one
+    or from ``coords`` (with ``band``: the banded kernel's axis-0
+    windows). Any float dtype; sums with ``index_add_``, one
     [B2, slots, width] contribution per leading-axis window offset (the
     last axis's window is the vector dimension), in the kernel's
     product order wl * (v * wlast)."""
     if kw is None:
-        kw = binning.slot_weights(coords, tile_bounds, geom, plan)
+        kw = binning.slot_weights(coords, tile_bounds, geom, plan,
+                                  band=band)
     batch2 = values_pl.shape[0]
     ext, rank, width = geom.ext, geom.rank, plan.width
     cells = int(np.prod(ext))
@@ -166,3 +264,21 @@ def spread_tiles_plain(values_pl: torch.Tensor, tile_bounds: torch.Tensor,
         out.index_add_(0, torch.where(ok, idx, 0).reshape(-1),
                        torch.where(ok, contrib, 0.0).reshape(-1))
     return out.reshape(geom.tiles + (batch2,) + ext)
+
+
+def dfta_plain(tiles: torch.Tensor, twiddles: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the fused epilogue: tiles
+    [nt0, nt1, nt2, B2, E0, E1, E2] (channels (b, re/im)) and twiddles
+    [3, nt2, E2, n2] (c, s - c, s + c) -> y [nt0, nt1, B2, E0, E1, n2],
+    each tile's E2 axis contracted as t1 = (xr + xi) c, t2 = xr (s - c),
+    t3 = xi (s + c), (yr, yi) = (t1 - t3, t1 + t2), summed over t2 in
+    order."""
+    cw, smcw, spcw = twiddles
+    yr = yi = None
+    for t2 in range(tiles.shape[2]):
+        xr, xi = tiles[:, :, t2, 0::2], tiles[:, :, t2, 1::2]
+        t1 = (xr + xi) @ cw[t2]
+        ar, ai = t1 - xi @ spcw[t2], t1 + xr @ smcw[t2]
+        yr, yi = (ar, ai) if yr is None else (yr + ar, yi + ai)
+    y = torch.stack([yr, yi], dim=3)             # [nt0, nt1, B, 2, ...]
+    return y.reshape(y.shape[:2] + (-1,) + y.shape[4:])

@@ -19,6 +19,8 @@ op and their points gradient the derivative-kernel interp
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
@@ -43,18 +45,22 @@ def _unfold(x: torch.Tensor, batch: int) -> torch.Tensor:
     return x.reshape((batch, 2) + x.shape[1:]).movedim(1, -1)
 
 
-def bin_for_plan(points: torch.Tensor, plan):
-    """Points-side preprocessing: two-float fold, tile geometry and
-    binning. Returns (geom, binned)."""
-    geom = binning.choose_geometry(plan.fine_shape, plan.width,
-                                   int(points.shape[0]))
+def bin_for_plan(points: torch.Tensor, plan,
+                 geom: Optional[binning.TileGeometry] = None,
+                 zorder: bool = False):
+    """Points-side preprocessing: two-float fold, tile geometry (the
+    unbanded ``choose_geometry`` unless ``geom`` is given) and binning
+    (z-ordered with ``zorder``). Returns (geom, binned)."""
+    if geom is None:
+        geom = binning.choose_geometry(plan.fine_shape, plan.width,
+                                       int(points.shape[0]))
     if not binning.geometry_valid(geom):
         raise ValueError(
             f"cannot tile fine shape {plan.fine_shape}: a dim is smaller "
             f"than twice the halo {geom.pad}")
     points_resc = fold_and_rescale_split(points, plan.fine_shape,
                                          plan.spec.points_range)
-    return geom, binning.bin_points(points_resc, geom)
+    return geom, binning.bin_points(points_resc, geom, zorder=zorder)
 
 
 def _execute_planar(source: torch.Tensor, points: torch.Tensor,

@@ -14,7 +14,8 @@ entry_tensors``). On a CUDA tensor the spread/interp stages, and at rank
 
 Gradients: ``nufft``, ``interp`` and ``spread`` are differentiable in
 ``source`` and ``points``, ``PlannedNufft`` in its source (through
-``adjoint()``); a plan's points are plan data. These are real functions,
+``adjoint()``), its slot-order values and ``normal``'s source; a plan's
+points and slot weights are plan data. These are real functions,
 so a gradient is the real transpose, the planar form of the complex
 adjoint: gradients of a real loss equal the JAX package's ``jax.vjp``.
 """
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from tensorflow_nufft_tpu_torch.fft.planar_fft import (
-    amplify_pad_dft_tiled, dft_truncate_deconvolve_tiled)
+    amplify_pad_dft_tiled, spread_dft_fused)
 from tensorflow_nufft_tpu_torch.kernels import binning, dispatch
 from tensorflow_nufft_tpu_torch.ops.nufft_ops import (
     VALID_FFT_DIRECTIONS, VALID_TRANSFORM_TYPES, _apply_batched,
@@ -244,13 +245,30 @@ class PlannedNufft:
     """Planned planar NUFFT (rank 2 or 3): fixed points, repeated
     applies.
 
-    Precomputes everything that depends only on the points: the
-    two-float fold, the tile binning and the per-slot kernel windows
-    (``binning.KernelWeights``, the counterpart of the JAX package's
-    "mats" plan level). Each call then runs only the value-dependent
-    work: the values gather, the spread or interp kernel, and the FFT
-    stage. Differentiable in the source (the backward applies
-    ``adjoint()``); the points are plan data and may not require grad.
+    Precomputes everything that depends only on the points, at one of
+    the JAX package's plan levels (``level``), chosen by its rule
+    (``planar.py:519-532``):
+
+    - "mats": the two-float fold, the tile binning and the per-slot
+      kernel windows (``binning.KernelWeights``), when the dense kernel
+      matrices a JAX plan would keep fit ``binning.MATS_BYTES_BUDGET``;
+    - "binned": the binning and the coords payload, the kernels
+      evaluating the windows. At rank 3 the binning is z-ordered on a
+      coarse axis-0 geometry with its axis-0 band (``band_info``), which
+      the banded kernels use; a band that degenerates to the whole
+      extended tile re-plans on the unbanded geometry.
+    - "none" for float64 points (the JAX package's Pallas path, like the
+      port's kernels, is float32 only): applies run ``planar.nufft`` and
+      slot order is point order.
+
+    Each call then runs only the value-dependent work. Besides
+    ``__call__`` and ``adjoint()``, the slot surface of iterative
+    solvers keeps per-point vectors in the kernels' chunk-slot order
+    (``num_slots``, ``slot_mask``, ``to_slots``/``from_slots``,
+    ``apply_to_slots``/``apply_from_slots``, ``slot_weights``) and
+    ``normal`` applies A^H W A with the point values kept in slot order.
+    Differentiable in the source (and slot values); the points are plan
+    data and may not require grad.
 
     Args:
         points: [M, rank] float32/float64 tensor or array.
@@ -304,10 +322,49 @@ class PlannedNufft:
         warn_if_tol_clamped(tol, self.spec.dtype_name,
                             options.show_warnings)
         self.plan = make_plan(self.spec)
-        self.geom, self.binned = bin_for_plan(points, self.plan)
-        self.weights = binning.build_weight_payload(self.binned, self.geom,
-                                                    self.plan)
         self._adjoint = None
+        self.geom = self.binned = self.weights = self.coords = None
+        self.band_info = None
+        if points.dtype != torch.float32:
+            self.level = "none"
+            return
+        plan, m = self.plan, int(points.shape[0])
+        geom = binning.choose_geometry(plan.fine_shape, plan.width, m)
+        self.level = ("mats" if binning.mats_supported(geom)
+                      and binning.mats_payload_bytes(geom)
+                      <= binning.MATS_BYTES_BUDGET else "binned")
+        zorder = self.level == "binned" and rank == 3
+        if zorder:
+            unbanded = geom
+            geom = binning.choose_geometry(plan.fine_shape, plan.width, m,
+                                           banded=True)
+        self._bin(geom, zorder)
+        if zorder and self.band_info is None and geom != unbanded:
+            # The band degenerated (sparse or clustered axis-0 spans): the
+            # JAX plan re-plans on the unbanded geometry.
+            if not binning.geometry_valid(unbanded):
+                self.level = "none"
+                return
+            self._bin(unbanded, zorder)
+
+    def _bin(self, geom: binning.TileGeometry, zorder: bool) -> None:
+        """Bins the points on ``geom`` and installs the level's
+        artifacts: the windows ("mats") or the coords payload and, with
+        ``zorder``, the axis-0 band where it is narrower than E0."""
+        self.geom, self.binned = bin_for_plan(self.points, self.plan, geom,
+                                              zorder)
+        if self.level == "mats":
+            self.weights = binning.build_weight_payload(self.binned, geom,
+                                                        self.plan)
+        else:
+            self.coords = binning.build_coords_payload(self.binned)
+        self.band_info = None
+        if zorder:
+            band, zorigins = binning.compute_band_origins(
+                self.binned, geom, self.plan.half_width)
+            if band < geom.ext[0]:
+                self.band_info = binning.BandInfo(
+                    band, torch.as_tensor(zorigins, device=self.device))
 
     @property
     def device(self) -> torch.device:
@@ -333,20 +390,66 @@ class PlannedNufft:
             self._adjoint = adj
         return self._adjoint
 
+    # -- the planned stages ------------------------------------------------
+
+    def _type1(self, values_pl: torch.Tensor, batch: int) -> torch.Tensor:
+        """Slot-order values [2B, num_slots] -> modes [B, *grid, 2]."""
+        return spread_dft_fused(values_pl, self.binned, self.geom,
+                                self.plan, batch, kw=self.weights,
+                                coords=self.coords, band=self.band_info)
+
+    def _interp(self, tiles: torch.Tensor, chunk_order: bool
+                ) -> torch.Tensor:
+        return dispatch.interp_tiled(tiles, self.binned, self.geom,
+                                     self.plan, kw=self.weights,
+                                     coords=self.coords,
+                                     band=self.band_info,
+                                     chunk_order=chunk_order)
+
+    def _unplanned(self, source: torch.Tensor) -> torch.Tensor:
+        """Level "none": the unplanned transform."""
+        return nufft(source, self.points,
+                     self.grid_shape if self.transform_type == "type_1"
+                     else None, self.transform_type, self.fft_direction,
+                     self.tol, self.options)
+
     def _apply(self, source: torch.Tensor) -> torch.Tensor:
+        if self.level == "none":
+            return self._unplanned(source)
         batch = source.shape[0]
         m = self.points.shape[0]
         if self.transform_type == "type_1":
             # Channel-major fold: [B, M, 2] -> [2B, M] (row order (b, ch)).
             src_cm = source.movedim(-1, 1).reshape(2 * batch, m)
-            tiles = dispatch.spread_tiled(src_cm, self.binned, self.geom,
-                                          self.plan, kw=self.weights)
-            return dft_truncate_deconvolve_tiled(tiles, self.plan,
-                                                 self.geom, batch)
+            return self._type1(
+                binning.build_values_payload(src_cm, self.binned), batch)
         tiles = amplify_pad_dft_tiled(source, self.plan, self.geom)
-        values = dispatch.interp_tiled(tiles, self.binned, self.geom,
-                                       self.plan, kw=self.weights)
+        values = self._interp(tiles, chunk_order=False)
         return values.reshape(batch, 2, m).movedim(1, -1)
+
+    def _check_source(self, source, what: str) -> torch.Tensor:
+        """``source`` as a tensor of the plan's device and dtype, raising
+        unless it has ``what``'s shape: [B, M, 2] ("points"), [B, S, 2]
+        ("slots") or [B, *grid, 2] ("grid")."""
+        source = as_tensor(source, device=self.device)
+        if what == "grid":
+            expect = tuple(self.grid_shape)
+            ok = (source.ndim == len(expect) + 2
+                  and tuple(source.shape[1:-1]) == expect)
+        else:
+            expect = (int(self.points.shape[0]) if what == "points"
+                      else self.num_slots,)
+            ok = source.ndim == 3 and source.shape[1] == expect[0]
+        if not (ok and source.shape[-1] == 2):
+            raise ValueError(
+                f"expects a source of shape [B, "
+                f"{', '.join(str(g) for g in expect)}, 2] (leading batch, "
+                f"trailing (re, im)); got shape {tuple(source.shape)}")
+        if source.dtype != self.points.dtype:
+            raise TypeError(
+                f"source must have the plan's dtype {self.points.dtype}, "
+                f"got {source.dtype}")
+        return source
 
     def __call__(self, source) -> torch.Tensor:
         """Applies the transform to planar ``source``.
@@ -357,28 +460,151 @@ class PlannedNufft:
         dtype of the plan's points. Differentiable in ``source``: the
         gradient applies ``adjoint()``.
         """
-        source = as_tensor(source, device=self.device)
-        m = int(self.points.shape[0])
-        if self.transform_type == "type_1":
-            expect = f"[B, {m}, 2]"
-            ok = (source.ndim == 3 and source.shape[1] == m
-                  and source.shape[-1] == 2)
-        else:
-            expect = "[B, {}, 2]".format(
-                ", ".join(str(g) for g in self.grid_shape))
-            ok = (source.ndim == len(self.grid_shape) + 2
-                  and tuple(source.shape[1:-1]) == self.grid_shape
-                  and source.shape[-1] == 2)
-        if not ok:
-            raise ValueError(
-                f"planned {self.transform_type} expects a source of "
-                f"shape {expect} (leading batch, trailing (re, im)); "
-                f"got shape {tuple(source.shape)}")
-        if source.dtype != self.points.dtype:
-            raise TypeError(
-                f"source must have the plan's dtype {self.points.dtype}, "
-                f"got {source.dtype}")
+        try:
+            source = self._check_source(
+                source, "points" if self.transform_type == "type_1"
+                else "grid")
+        except ValueError as err:
+            raise ValueError(f"planned {self.transform_type} {err}") \
+                from None
         return _PlannedCall.apply(source, self)
+
+    # -- the slot surface --------------------------------------------------
+    # The planned kernels' native point layout is the chunk-padded slot
+    # stream (binning.BinnedPoints). Iterative solvers that keep per-point
+    # vectors in slot order skip the point-order gathers of every apply:
+    # convert fixed data once with to_slots, then loop on
+    # apply_to_slots / apply_from_slots, or on normal.
+
+    @property
+    def num_slots(self) -> int:
+        """Length S of the slot axis ([B, S, 2] slot-order vectors); M at
+        level "none"."""
+        if self.level == "none":
+            return int(self.points.shape[0])
+        return self.geom.num_slots
+
+    @property
+    def slot_mask(self) -> torch.Tensor:
+        """[S] 1 where the slot holds a point, 0 in padded and unused
+        slots (in the points' dtype), for slot-space reductions."""
+        if self.level == "none":
+            return torch.ones(self.num_slots, dtype=self.points.dtype,
+                              device=self.device)
+        return (self.binned.invpos < self.points.shape[0]).to(
+            self.points.dtype)
+
+    def slot_weights(self, weights) -> torch.Tensor:
+        """Per-point real weights [M] (density compensation) -> slot
+        order [S] for ``normal``, zero in padded slots. Compute once per
+        weight vector."""
+        weights = as_tensor(weights, device=self.device)
+        if self.level == "none":
+            return weights
+        return binning.slot_order_scalar(weights, self.binned)
+
+    def normal(self, source, slot_w=None) -> torch.Tensor:
+        """The normal operator A^H W A, A the type-2 direction of this
+        plan: the type-2 apply and its adjoint with the point values kept
+        in slot order (chunk-order interp, slot-order spread), so neither
+        point-order gather runs.
+
+        Args:
+            source: [B, *grid, 2] planar images.
+            slot_w: optional [S] slot-order real weights from
+                ``slot_weights``; plan data (no gradient).
+
+        Returns:
+            [B, *grid, 2] planar ``A^H W A source``; differentiable in
+            ``source`` (the operator is its own transpose).
+        """
+        source = self._check_source(source, "grid")
+        if slot_w is not None:
+            slot_w = as_tensor(slot_w, dtype=self.points.dtype,
+                               device=self.device).detach()
+        t2 = self if self.transform_type == "type_2" else self.adjoint()
+        if self.level == "none":
+            vals = t2(source)
+            if slot_w is not None:
+                vals = vals * slot_w[None, :, None]
+            return t2.adjoint()(vals)
+        return _PlannedNormal.apply(source, slot_w, t2)
+
+    def to_slots(self, values) -> torch.Tensor:
+        """Point-order planar values [B, M, 2] -> slot order [B, S, 2]
+        (zeros in padded and unused slots): one gather; convert
+        loop-invariant data once. Its gradient is ``from_slots``."""
+        values = self._check_source(values, "points")
+        if self.level == "none":
+            return values
+        return _ToSlots.apply(values, self)
+
+    def from_slots(self, slot_values) -> torch.Tensor:
+        """Slot-order planar values [B, S, 2] -> point order [B, M, 2]
+        (the inverse of ``to_slots``, and its gradient)."""
+        slot_values = self._check_source(slot_values, "slots")
+        if self.level == "none":
+            return slot_values
+        return _FromSlots.apply(slot_values, self)
+
+    def apply_to_slots(self, source) -> torch.Tensor:
+        """The type-2 apply with slot-order output [B, S, 2]:
+        ``to_slots(self(source))`` without the point-order gather; padded
+        and unused slots come out exactly zero. Differentiable in
+        ``source`` (through the adjoint's ``apply_from_slots``)."""
+        if self.transform_type != "type_2":
+            raise ValueError(
+                "apply_to_slots is the type-2 (grid -> points) apply; "
+                "this plan is type_1 (use adjoint(), or apply_from_slots)")
+        source = self._check_source(source, "grid")
+        if self.level == "none":
+            return self(source)
+        return _PlannedSlots.apply(source, self)
+
+    def apply_from_slots(self, slot_values) -> torch.Tensor:
+        """The type-1 apply from slot-order values [B, S, 2] -> [B, *grid,
+        2], without the values gather of ``__call__``; padded and unused
+        input slots are masked out (``torch.where``, so even NaN there
+        does not leak). Differentiable in ``slot_values``."""
+        if self.transform_type != "type_1":
+            raise ValueError(
+                "apply_from_slots is the type-1 (points -> grid) apply; "
+                "this plan is type_2 (use adjoint(), or apply_to_slots)")
+        slot_values = self._check_source(slot_values, "slots")
+        if self.level == "none":
+            return self(slot_values)
+        return _PlannedSlots.apply(slot_values, self)
+
+    def _apply_slots(self, source: torch.Tensor) -> torch.Tensor:
+        batch = source.shape[0]
+        keep = self.binned.invpos < self.points.shape[0]
+        if self.transform_type == "type_1":
+            src_cm = source.movedim(-1, 1).reshape(2 * batch, -1)
+            return self._type1(torch.where(keep[None], src_cm, 0.0), batch)
+        tiles = amplify_pad_dft_tiled(source, self.plan, self.geom)
+        flat = torch.where(keep[None], self._interp(tiles, True), 0.0)
+        return flat.reshape(batch, 2, -1).movedim(1, -1)
+
+    def _apply_normal(self, source: torch.Tensor,
+                      slot_w: Optional[torch.Tensor]) -> torch.Tensor:
+        """A^H W A on a type-2 plan (``self``)."""
+        tiles = amplify_pad_dft_tiled(source, self.plan, self.geom)
+        flat = self._interp(tiles, chunk_order=True)      # [2B, S]
+        if slot_w is not None:
+            flat = flat * slot_w[None]
+        return self.adjoint()._type1(flat, source.shape[0])
+
+    def _to_slots(self, values: torch.Tensor) -> torch.Tensor:
+        batch = values.shape[0]
+        flat = binning.build_values_payload(
+            values.movedim(-1, 1).reshape(2 * batch, -1), self.binned)
+        return flat.reshape(batch, 2, -1).movedim(1, -1)
+
+    def _from_slots(self, slot_values: torch.Tensor) -> torch.Tensor:
+        batch = slot_values.shape[0]
+        flat = binning.scatter_chunked(
+            slot_values.movedim(-1, 1).reshape(2 * batch, -1), self.binned)
+        return flat.reshape(batch, 2, -1).movedim(1, -1)
 
 
 class _PlannedCall(torch.autograd.Function):
@@ -393,3 +619,61 @@ class _PlannedCall(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cotangent):
         return _PlannedCall.apply(cotangent, ctx.op.adjoint()), None
+
+
+class _PlannedNormal(torch.autograd.Function):
+    """A^H W A with real W is self-adjoint, and the planar-real transpose
+    of a self-adjoint complex-linear operator is itself (JAX
+    ``_planned_normal_bwd``); the weights are plan data."""
+
+    @staticmethod
+    def forward(ctx, source, slot_w, op):
+        ctx.op, ctx.slot_w = op, slot_w
+        return op._apply_normal(source.contiguous(), slot_w)
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        return (_PlannedNormal.apply(cotangent, ctx.slot_w, ctx.op), None,
+                None)
+
+
+class _PlannedSlots(torch.autograd.Function):
+    """A slot-order apply: the point-order operator conjugated by the
+    slot embedding (both directions mask to real slots), so its transpose
+    is the adjoint plan's slot-order apply (JAX ``_planned_slots_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, source, op):
+        ctx.op = op
+        return op._apply_slots(source.contiguous())
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        return _PlannedSlots.apply(cotangent, ctx.op.adjoint()), None
+
+
+class _ToSlots(torch.autograd.Function):
+    """The slot embedding E (zeros in padded slots); its transpose is the
+    gather back, ``from_slots``."""
+
+    @staticmethod
+    def forward(ctx, values, op):
+        ctx.op = op
+        return op._to_slots(values)
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        return _FromSlots.apply(cotangent, ctx.op), None
+
+
+class _FromSlots(torch.autograd.Function):
+    """E^T, whose transpose is ``to_slots``."""
+
+    @staticmethod
+    def forward(ctx, slot_values, op):
+        ctx.op = op
+        return op._from_slots(slot_values)
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        return _ToSlots.apply(cotangent, ctx.op), None

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import tensorflow_nufft_tpu_torch as tnt
-from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft
+from tensorflow_nufft_tpu_torch.fft import planar_fft
+from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft, dfta_twiddles
 from tensorflow_nufft_tpu_torch.kernels import binning, interp, mode3d, spread
 from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
 from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
@@ -307,3 +308,153 @@ def test_float64_on_cuda_raises(dev):
     with pytest.raises(ValueError, match="float32"):
         tnt.planar.nufft(src, pts, grid_shape=(32, 32),
                          transform_type="type_1")
+
+
+# The binned plan level: z-ordered rank-3 binning with an axis-0 band
+# (the dense-matrix budget lowered to reach it at small sizes), and the
+# degenerate band (every sub-chunk spanning all of E0), which the kernels
+# take as well.
+BINNED_CASES = [((24, 16, 16), 3000, False), ((24, 16, 16), 4000, True),
+                ((32, 32, 64), 20000, False)]
+
+
+def _binned_plan(monkeypatch, grid, m, clustered, dev,
+                 transform_type="type_1", seed=0):
+    monkeypatch.setattr(binning, "MATS_BYTES_BUDGET", 0)
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-np.pi, np.pi, (m, 3))
+    if clustered:
+        pts[:, 0] = np.where(rng.random(m) < 0.5, 0.0, 2.0) \
+            + 0.05 * rng.standard_normal(m)
+    op = tnt.PlannedNufft(torch.from_numpy(pts.astype(np.float32)), grid,
+                          transform_type=transform_type, device=dev)
+    assert op.level == "binned" and op.band_info is not None
+    return op
+
+
+def _bands(op):
+    """The plan's band, and the degenerate one (band E0 from row 0)."""
+    full = binning.BandInfo(op.geom.ext[0],
+                            torch.zeros_like(op.band_info.zorigins))
+    return (op.band_info, full)
+
+
+@pytest.mark.parametrize("grid,m,clustered", BINNED_CASES)
+@pytest.mark.parametrize("b2", (2, 4))
+def test_banded_kernels_match_plain(dev, monkeypatch, grid, m, clustered,
+                                    b2):
+    op = _binned_plan(monkeypatch, grid, m, clustered, dev)
+    geom, tb, coords = op.geom, op.binned.tile_bounds, op.coords
+    rng = np.random.default_rng(b2)
+    values_pl = binning.build_values_payload(torch.from_numpy(
+        rng.standard_normal((b2, m)).astype(np.float32)).to(dev), op.binned)
+    tiles = torch.from_numpy(rng.standard_normal(
+        geom.tiles + (b2,) + geom.ext).astype(np.float32)).to(dev)
+    twiddles = dfta_twiddles(op.plan, geom, dev)
+    for band in _bands(op):
+        before = (spread.spread_banded_cuda.launches,
+                  interp.interp_banded_cuda.launches,
+                  spread.spread_dfta_cuda.launches)
+        want = spread.spread_tiles_plain(values_pl, tb, geom, op.plan,
+                                         coords=coords, band=band)
+        _close(spread.spread_banded_cuda(values_pl, tb, geom, op.plan,
+                                         coords, band), want)
+        _close(spread.spread_dfta_cuda(values_pl, tb, geom, op.plan, coords,
+                                       band, twiddles),
+               spread.dfta_plain(want, twiddles))
+        _close(interp.interp_banded_cuda(tiles, tb, geom, op.plan, coords,
+                                         band),
+               interp.interp_tiles_plain(tiles, tb, geom, op.plan,
+                                         coords=coords, band=band))
+        assert (spread.spread_banded_cuda.launches,
+                interp.interp_banded_cuda.launches,
+                spread.spread_dfta_cuda.launches) == tuple(
+                    n + 1 for n in before)
+
+
+@pytest.mark.parametrize("batch", (1, 2))
+def test_modes2_kernels_match_plain(dev, monkeypatch, batch):
+    op = _binned_plan(monkeypatch, (24, 16, 16), 3000, False, dev)
+    geom, n2 = op.geom, op.grid_shape[2]
+    rng = np.random.default_rng(batch)
+    y = torch.from_numpy(rng.standard_normal(
+        geom.tiles[:2] + (2 * batch,) + geom.ext[:2] + (n2,)).astype(
+            np.float32)).to(dev)
+    want = mode3d.fold_plain(y, geom, batch, axes=2)
+    _close(torch.view_as_real(mode3d.fold2_cuda(y, geom, batch)),
+           torch.view_as_real(want))
+    spec = _fft(want, "forward", (1, 2)).contiguous()
+    _close(mode3d.truncate_deconvolve2_cuda(spec, op.plan, geom),
+           mode3d.truncate_deconvolve_plain(spec, op.plan, axes=2))
+
+
+def test_banded_spread_is_deterministic(dev, monkeypatch):
+    op = _binned_plan(monkeypatch, (32, 32, 64), 20000, False, dev)
+    values_pl = binning.build_values_payload(
+        torch.randn(2, 20000, device=dev), op.binned)
+    args = (values_pl, op.binned.tile_bounds, op.geom, op.plan, op.coords,
+            op.band_info)
+    first = spread.spread_banded_cuda(*args)
+    for _ in range(3):
+        assert torch.equal(first, spread.spread_banded_cuda(*args))
+
+
+@pytest.mark.parametrize("grid,m,clustered", BINNED_CASES[:2])
+@pytest.mark.parametrize("fused", (False, True))
+def test_binned_plan_on_cuda_matches_cpu(dev, monkeypatch, grid, m,
+                                         clustered, fused):
+    """Every apply of a binned-level plan, on the card and on the CPU (the
+    plain versions), on both type-1 routes, and the gradients of the slot
+    surface."""
+    monkeypatch.setattr(planar_fft, "FUSED_DFTA", fused)
+    counter = spread.spread_dfta_cuda if fused else spread.spread_banded_cuda
+    before = counter.launches
+    ops = {d: _binned_plan(monkeypatch, grid, m, clustered, d, "type_2")
+           for d in ("cpu", dev)}
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2,) + grid + (2,)).astype(
+        np.float32))
+    c = torch.from_numpy(rng.standard_normal((2, m, 2)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, m).astype(np.float32))
+    results = []
+    for d, op in ops.items():
+        xs = x.to(d, copy=True).requires_grad_()
+        slots = op.to_slots(c.to(d))
+        sw = op.slot_weights(w.to(d))
+        outs = [op(xs), op.adjoint()(c.to(d)), op.apply_to_slots(xs),
+                op.adjoint().apply_from_slots(slots), op.normal(xs, sw)]
+        sum(o.square().sum() for o in (outs[0], outs[2], outs[4])
+            ).backward()
+        results.append([o.detach().cpu() for o in outs] + [xs.grad.cpu()])
+    for want, got in zip(*results):
+        _close(got, want)
+    assert counter.launches > before
+    assert interp.interp_banded_cuda.launches > 0
+
+
+def test_binned_2d_slot_surface_on_cuda_matches_cpu(dev, monkeypatch):
+    """The rank-2 binned level: slot-order values into the unplanned
+    spread (the split spread's slot-order input), on the card and on the
+    CPU."""
+    monkeypatch.setattr(binning, "MATS_BYTES_BUDGET", 0)
+    grid, m = (64, 96), 3000
+    rng = np.random.default_rng(10)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, 2)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((2,) + grid + (2,)).astype(
+        np.float32))
+    c = torch.from_numpy(rng.standard_normal((2, m, 2)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, m).astype(np.float32))
+    results = []
+    for d in ("cpu", dev):
+        op = tnt.PlannedNufft(pts, grid, transform_type="type_2", device=d)
+        assert op.level == "binned"
+        before = spread.spread_unplanned_cuda.launches
+        outs = (op.normal(x.to(d), op.slot_weights(w.to(d))),
+                op.adjoint().apply_from_slots(op.to_slots(c.to(d))),
+                op.apply_to_slots(x.to(d)))
+        if d == dev:
+            assert spread.spread_unplanned_cuda.launches == before + 2
+        results.append([o.cpu() for o in outs])
+    for want, got in zip(*results):
+        _close(got, want)

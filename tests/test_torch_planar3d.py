@@ -80,7 +80,12 @@ def test_planned_and_adjoint_match_jax_3d(transform_type, dtype):
     _, adj_src, adj_want = case(adj_type, "backward", dtype)
     top = tnt.PlannedNufft(pts, GRID, transform_type=transform_type,
                            device="cpu")
-    assert top.device.type == "cpu" and top.weights.weights.shape[0] == 3
+    assert top.device.type == "cpu"
+    # Float64 points take the JAX package's plan level "none" (its Pallas
+    # path, like the port's kernels, is float32 only): planar.nufft.
+    assert top.level == ("mats" if dtype == np.float32 else "none")
+    if top.level == "mats":
+        assert top.weights.weights.shape[0] == 3
     pair = torch.from_numpy(np.stack([src, 2 * src]))
     assert _relerr(top(pair), np.stack([want, 2 * want])) <= RTOL
     adj = top.adjoint()
