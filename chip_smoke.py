@@ -17,7 +17,9 @@ Phases:
 
 1. Environment: torch, CUDA and nvcc versions, the card's name and power
    limit. Fails when torch sees no CUDA device.
-2. Build: compiles the hand-written kernels (csrc/*.cu, nvcc, sm_90a).
+2. Build: compiles the hand-written kernels (csrc/*.cu, nvcc, sm_90a) and
+   prints each kernel's registers, static shared memory and spill bytes
+   (-Xptxas -v).
 3. 2D kernels: at the 2D headline geometry, with 2 and 8 channels, runs
    the spread and interp kernels from both weight sources (planned
    windows, in-kernel evaluation) and holds each to its plain PyTorch
@@ -55,7 +57,8 @@ Phases:
    2 (row 7), at 4 and with slot-order values (row 8), the banded interp
    (row 13, its chunk- and point-order outputs), the fused spread with
    its axis-2 epilogue (row 9) and the two-axis fold and truncation after
-   it, each against its plain version (1e-5 of the peak) and timed.
+   it, each against its plain version (1e-5 of the peak) and timed; the
+   banded spread and interp repeated bit for bit.
 9. 3D planned surface at the binned level: as phase 5 on the adjoint
    (type-2) plan, with launch counts.
 10. The type-1 routes: the fused and the staged route held to each other
@@ -66,7 +69,9 @@ Phases:
    5): each kernel and its plain version, the 2D and 3D transforms
    (points/s), the two 3D torch.fft calls and the 3D plan build, and the
    3D planned transforms and plan build on the "mats" route (per-slot
-   windows, the budget raised) on the same card. Each kernel's bound is
+   windows on the unbanded geometry, the budget raised) on the same card,
+   the planned transforms of the two routes in turns (binned, mats, mats,
+   binned). Each kernel's bound is
    the larger of its bytes over 3.35 TB/s and its float32 operations
    over 67 TFLOP/s (H100 SXM data sheet), from this run's shapes.
 12. 3D planned at a mats-level size (128^3 modes, 200,000 points, where
@@ -234,9 +239,43 @@ def build():
     log(f"build: {time.perf_counter() - start:.1f} s "
         f"(nvcc ran: {_build.BuildInfo.compiled}, "
         f"{_build.BuildInfo.seconds:.1f} s) -> {_build.BuildInfo.path}")
-    for line in _build.BuildInfo.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name, regs, smem, spills in ptxas_kernels(_build.BuildInfo.log):
+        log(f"  ptxas {name}: {regs} registers, {smem} bytes static smem, "
+            f"spills {spills}")
+
+
+def ptxas_kernels(text):
+    """(kernel, registers, static shared bytes, "stores/loads" spill
+    bytes) per entry function of nvcc's ``-Xptxas -v`` output, names
+    demangled with c++filt where the machine has it."""
+    import re
+    out, name, spills = [], None, "0/0"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), "0/0"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = f"{m.group(1)}/{m.group(2)}"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append([name, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0, spills])
+            name = None
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(k[0] for k in out),
+            capture_output=True, text=True, check=True).stdout.split("\n")
+        for k, demangled in zip(out, names):
+            k[0] = demangled.replace("(anonymous namespace)::", "")
+            k[0] = k[0].split("(")[0] if "(" in k[0] else k[0]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return [tuple(k) for k in out]
 
 
 _PS = "tensorflow_nufft_tpu/kernels/pallas_spread.py"
@@ -932,8 +971,21 @@ def transform_times_3d(op1, adj, pts, strengths, modes_p):
         raise RuntimeError("the raised budget did not give the mats level")
     cases = transform_cases(op1, adj, pts, strengths, modes_p, GRID3,
                             dict(fft_direction="backward"))
-    cases.update({"t1_planned_mats": lambda: mats(strengths[None]),
-                  "t2_planned_mats": lambda: mats.adjoint()(modes_p[None]),
+    mats_cases = {"t1_planned": lambda: mats(strengths[None]),
+                  "t2_planned": lambda: mats.adjoint()(modes_p[None])}
+    # The planned transforms of both routes in turns (binned, mats, mats,
+    # binned), so that they share the card's state.
+    for name, mats_fn in mats_cases.items():
+        turns = {op1.level: [], "mats": []}
+        for level in (op1.level, "mats", "mats", op1.level):
+            fn = cases[name] if level == op1.level else mats_fn
+            turns[level].append(cuda_ms(fn))
+        log(f"time 3d_{name} in turns: {op1.level} {turns[op1.level]} ms, "
+            f"mats {turns['mats']} ms (means "
+            f"{np.mean(turns[op1.level]):.4f} / "
+            f"{np.mean(turns['mats']):.4f} ms)")
+    cases.update({"t1_planned_mats": mats_cases["t1_planned"],
+                  "t2_planned_mats": mats_cases["t2_planned"],
                   "plan_build_mats": build_mats})
     for name, fn in cases.items():
         ms = cuda_ms(fn)
@@ -1042,6 +1094,14 @@ def kernel_phase_binned(op, dev):
     results["spread3d_banded_split"]["max_abs_err"] = max(
         results["spread3d_banded_split"]["max_abs_err"],
         extra["spread3d_banded_split"]["max_abs_err"])
+    # One owner and a fixed order per output: bit-repeatable run to run.
+    for name in ("spread3d_banded", "interp3d_banded"):
+        kernel = cases[name][0]
+        first = kernel()
+        same = all(torch.equal(first, kernel()) for _ in range(2))
+        log(f"kernel {name}: bit-repeatable over 3 runs: {same}")
+        if not same:
+            raise RuntimeError(f"{name} is not bit-repeatable")
     # The banded interp's point-order output (its plain version's through
     # the same gather).
     got = dispatch.interp_tiled(tiles, binned, geom, plan, coords=coords,

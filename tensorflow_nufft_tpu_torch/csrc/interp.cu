@@ -31,26 +31,44 @@
 // of range and give exactly 0. Chunks past tile_bounds[-1] belong to no
 // block and are never read or written.
 //
-// Design (banded). One thread block per (sub-chunk, channel group) --
-// blocks run in parallel and each slot has one owner, so no tile-level
-// ownership is needed -- stages only the band rows [zo, zo + band) of its
-// tile's block in shared memory (16 x 24 x 72 x 4 B = 110.6 KB per
-// channel at the 3D headline, against 939 KB for the whole block), kSlab
-// rows at a time where a band does not fit, and one thread per (channel,
-// slot) contracts in the order above, its windows from es_window_exact
-// (axis 0's counted from the band origin), rows outside the band taking
-// nothing. Sub-chunks of chunks past
-// tile_bounds[-1] exit at once.
+// Design (banded). A block serves a run of consecutive sub-chunks of one
+// chunk (a whole chunk of 512 slots at the 3D headline) for one channel,
+// one thread per slot. It stages the union of the run's bands [zorigins[j],
+// + band) -- z-ordered binning keeps a chunk's bands close, about 24 rows
+// for 512 slots at the headline against 16 for each 128-slot sub-chunk --
+// in pieces of kSlab rows, double-buffered: for one channel a piece's rows
+// are one contiguous range of the tile array, copied with 16-byte
+// cp.async (4-byte where rows do not align) while the block contracts the
+// piece before it. Two buffers of 8 rows (110.6 KB at ext (136, 24, 72))
+// let two blocks share an SM. Each thread forms its windows with
+// es_window_exact (axis 0 counted from its sub-chunk's band origin) into
+// registers -- the kernel is instantiated per width, so the window loops
+// unroll -- and contracts, in the order above, the window rows that lie
+// in the piece and in its own band, rows outside the band taking nothing.
+// The pieces ascend, so each slot's rows are summed in increasing order
+// as in one pass: each slot has one owner and a fixed order, and the
+// result is bit-repeatable (and equal to the sub-chunk-per-block kernel
+// this design replaced). Sub-chunks of padded slots are left out of the
+// union; blocks of chunks past tile_bounds[-1] exit at once.
 //
 // What bounds it on the H100: width^rank shared-memory reads per slot and
 // channel (49 at 2D, 343 at 3D, width 7) at scattered addresses, plus,
 // unplanned, rank * width kernel evaluations per slot; global traffic is
 // small (the tile blocks once, the planned windows, the output). The
-// design keeps the last axis's window in registers and the block's data
-// in shared memory; at rank 3 the leading windows are indexed in loops
-// that are not unrolled (16^3 unrolled steps would not fit), which puts
-// them in local memory, cached in L1. Filling the card is left to later
-// work.
+// unbanded design keeps the last axis's window in registers and the
+// block's data in shared memory; at rank 3 the leading windows are
+// indexed in loops that are not unrolled (16^3 unrolled steps would not
+// fit), which puts them in local memory, cached in L1. The banded
+// kernel's predecessor staged 221 KB of band rows for every 128 slots
+// (1.5 GB at the 3D headline, 4 bytes a load, one block of 8 warps per
+// SM, no overlap of copy and contraction: 3.97 ms against a 0.08 ms byte
+// bound on an H100); staging a chunk's union once, in 16-byte
+// asynchronous copies that overlap the contraction, moves about a third
+// of that, and the per-width instantiation keeps the 343-term
+// contraction in registers and shared memory (PERF.md has the card
+// times).
+#include <utility>
+
 #include "tnt_common.cuh"
 
 namespace {
@@ -152,19 +170,50 @@ __global__ void interp_kernel(const int* __restrict__ tile_bounds,
   }
 }
 
-// Rank-3 banded interp. Block (sub-chunk, channel group); threads
-// (channel, slot) of the sub-chunk. out is [num_chunks, B2, chunk].
-__global__ void interp_banded_kernel(const int* __restrict__ tile_bounds,
-                                     const int* __restrict__ zorigins,
-                                     const float* __restrict__ tiles,
-                                     const float* __restrict__ coords,
-                                     float* __restrict__ out, Geometry g,
-                                     EsKernel k, tnt::Band bd) {
-  extern __shared__ float f[];  // [group][slab rows][E1][E2]
+// Copies n floats from global src to shared dst asynchronously, 16 bytes
+// a thread-copy where `vec` (both 16-byte aligned, n a multiple of 4),
+// else 4; the caller commits the group.
+__device__ __forceinline__ void copy_async(float* dst,
+                                           const float* __restrict__ src,
+                                           int n, bool vec) {
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec) {
+    for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       base + 4 * i),
+                   "l"(src + i));
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       base + 4 * i),
+                   "l"(src + i));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Rank-3 banded interp at width kW. Block (run of bd.run sub-chunks,
+// channel); thread t takes slot t of the run. out is [num_chunks, B2,
+// chunk]; shared memory holds two pieces of bd.slab rows [E1][E2].
+template <int kW>
+__global__ void __launch_bounds__(512, 2)
+    interp_banded_kernel(const int* __restrict__ tile_bounds,
+                         const int* __restrict__ zorigins,
+                         const float* __restrict__ tiles,
+                         const float* __restrict__ coords,
+                         float* __restrict__ out, Geometry g, EsKernel k,
+                         tnt::Band bd) {
+  extern __shared__ float4 smem4[];
+  float* f = reinterpret_cast<float*>(smem4);
   const int nt = tnt::num_tiles(g);
   const int subs = g.chunk / bd.sublen;
-  const int sc = blockIdx.x;
-  const int kc = sc / subs;
+  const int sc0 = blockIdx.x * bd.run;  // first sub-chunk of the run
+  const int kc = sc0 / subs;
   if (kc >= tile_bounds[nt]) return;  // a chunk no tile owns (uniform)
   int lo = 0, hi = nt - 1;            // the tile owning chunk kc
   while (lo < hi) {
@@ -172,72 +221,107 @@ __global__ void interp_banded_kernel(const int* __restrict__ tile_bounds,
     if (tile_bounds[mid] <= kc) lo = mid; else hi = mid - 1;
   }
   const int tile = lo;
-  const int zo = zorigins[sc];
-  const int c0 = blockIdx.y * g.group;
-  const int nc = min(g.group, g.batch2 - c0);
-  const int w = k.width;
-  const int e1 = g.e[1], e2 = g.e[2];
+  const int c = blockIdx.y;
+  const int e0 = g.e[0], e1 = g.e[1], e2 = g.e[2];
   const int plane = e1 * e2;
-  const int b = threadIdx.x / bd.sublen;
-  const int c = threadIdx.x - b * bd.sublen;
-  const bool active = b < nc;
-  const int slot = kc * g.chunk + (sc - kc * subs) * bd.sublen + c;
-
-  float w0[kMaxWidth], w1[kMaxWidth], w2[kMaxWidth];
-  int s0 = 0, s1 = 0, s2 = 0;
-  if (active) {
-    float origin[3];
-    tnt::tile_origins<3>(g, tile, origin);
-    s0 = tnt::es_window_exact(coords[slot],
-                              coords[(size_t)3 * g.slots + slot],
-                              __fadd_rn(origin[0], (float)zo), k, w0);
-    s1 = tnt::es_window_exact(coords[(size_t)g.slots + slot],
-                              coords[(size_t)4 * g.slots + slot], origin[1],
-                              k, w1);
-    s2 = tnt::es_window_exact(coords[(size_t)2 * g.slots + slot],
-                              coords[(size_t)5 * g.slots + slot], origin[2],
-                              k, w2);
-  }
-  float acc = 0.0f;
-  // The band's rows in pieces of kSlab (the whole band at the headline),
-  // each staged for the group, contracted in increasing row order.
-  for (int q = 0; q < bd.band; q += bd.slab) {
-    const int nrows = min(bd.slab, bd.band - q);
-    __syncthreads();  // the previous piece is consumed
-    for (int b2 = 0; b2 < nc; ++b2) {
-      const float* src =
-          tiles + (((size_t)tile * g.batch2 + c0 + b2) * g.e[0] + zo + q) *
-                      plane;
-      float* dst = f + (size_t)b2 * bd.slab * plane;
-      for (int i = threadIdx.x; i < nrows * plane; i += blockDim.x)
-        dst[i] = src[i];
+  // The union [first, last) of the bands of the run's sub-chunks that
+  // hold a point.
+  int first = e0, last = 0;
+  for (int j = 0; j < bd.run; ++j) {
+    const int sc = sc0 + j;
+    if (coords[(size_t)sc * bd.sublen] != tnt::kSentinel) {
+      const int zo = zorigins[sc];
+      first = min(first, zo);
+      last = max(last, zo + bd.band);
     }
-    __syncthreads();
-    if (!active) continue;
-    const float* fb = f + (size_t)b * bd.slab * plane;
-#pragma unroll 1
-    for (int i = 0; i < w; ++i) {
-      const int r0 = s0 + i - q;  // row within this piece
-      if ((unsigned)r0 >= (unsigned)nrows) continue;
-#pragma unroll 1
-      for (int j = 0; j < w; ++j) {
+  }
+  const int t = threadIdx.x;
+  const int sc = sc0 + t / bd.sublen;
+  const int slot = sc0 * bd.sublen + t;
+  const int zo = zorigins[sc];
+  float origin[3];
+  tnt::tile_origins<3>(g, tile, origin);
+  float w0[kW], w1[kW], w2[kW];
+  const int s0 = tnt::es_window_exact<kW>(
+      coords[slot], coords[(size_t)3 * g.slots + slot],
+      __fadd_rn(origin[0], (float)zo), k, w0);
+  const int s1 = tnt::es_window_exact<kW>(
+      coords[(size_t)g.slots + slot], coords[(size_t)4 * g.slots + slot],
+      origin[1], k, w1);
+  const int s2 = tnt::es_window_exact<kW>(
+      coords[(size_t)2 * g.slots + slot],
+      coords[(size_t)5 * g.slots + slot], origin[2], k, w2);
+
+  const float* src = tiles + ((size_t)tile * g.batch2 + c) * e0 * plane;
+  const bool vec = plane % 4 == 0 &&
+                   reinterpret_cast<size_t>(tiles) % 16 == 0;
+  const int pieces = last > first ? (last - first + bd.slab - 1) / bd.slab
+                                  : 0;
+  if (pieces > 0)
+    copy_async(f, src + (size_t)first * plane,
+               min(bd.slab, last - first) * plane, vec);
+  float acc = 0.0f;
+  for (int p = 0; p < pieces; ++p) {
+    const int p0 = first + p * bd.slab;  // the piece's first row
+    const int nrows = min(bd.slab, last - p0);
+    if (p + 1 < pieces) {
+      const int p1 = p0 + bd.slab;
+      copy_async(f + (size_t)((p + 1) & 1) * bd.slab * plane,
+                 src + (size_t)p1 * plane, min(bd.slab, last - p1) * plane,
+                 vec);
+      wait_async<1>();
+    } else {
+      wait_async<0>();
+    }
+    __syncthreads();  // piece p is in shared memory
+    const float* fb = f + (size_t)(p & 1) * bd.slab * plane;
+    // Row i of the slot's window, where it lies in this piece and in the
+    // band: acc += (w0[i] w1[j]) (sum_x w2[x] F[.., s1 + j, s2 + x]).
+    auto row = [&](int i, float wi) {
+      const int q = s0 + i;       // the row in the band's coordinates
+      const int r = zo + q - p0;  // the row in this piece
+      if ((unsigned)q >= (unsigned)bd.band || (unsigned)r >= (unsigned)nrows)
+        return;
+#pragma unroll
+      for (int j = 0; j < kW; ++j) {
         const int r1 = s1 + j;
         if ((unsigned)r1 >= (unsigned)e1) continue;
-        const float* frow = fb + (r0 * e1 + r1) * e2;
+        const float* frow = fb + (r * e1 + r1) * e2;
         float inner = 0.0f;
 #pragma unroll
-        for (int p = 0; p < kMaxWidth; ++p) {
-          const int col = s2 + p;
-          if (p < w && (unsigned)col < (unsigned)e2)
-            inner = __fadd_rn(inner, __fmul_rn(frow[col], w2[p]));
+        for (int x = 0; x < kW; ++x) {
+          const int col = s2 + x;
+          if ((unsigned)col < (unsigned)e2)
+            inner = __fadd_rn(inner, __fmul_rn(frow[col], w2[x]));
         }
-        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(w0[i], w1[j]), inner));
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wi, w1[j]), inner));
       }
+    };
+    // All kW^3 terms unrolled up to width 8; wider windows keep the
+    // row loop rolled (kW^2 unrolled terms), which bounds the code the
+    // fifteen widths compile to.
+    if constexpr (kW <= 8) {
+#pragma unroll
+      for (int i = 0; i < kW; ++i) row(i, w0[i]);
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < kW; ++i) row(i, w0[i]);
     }
+    __syncthreads();  // piece p is consumed before p + 2 lands there
   }
-  if (active)
-    out[((size_t)kc * g.batch2 + c0 + b) * g.chunk +
-        (sc - kc * subs) * bd.sublen + c] = acc;
+  out[((size_t)kc * g.batch2 + c) * g.chunk + (sc0 - kc * subs) * bd.sublen +
+      t] = acc;
+}
+
+using BandedFn = void (*)(const int*, const int*, const float*,
+                          const float*, float*, Geometry, EsKernel,
+                          tnt::Band);
+
+template <int... kWs>
+BandedFn banded_fn(int width, std::integer_sequence<int, kWs...>) {
+  BandedFn fn = nullptr;
+  ((fn = width == kWs ? interp_banded_kernel<kWs> : fn), ...);
+  return fn;
 }
 
 using InterpFn = void (*)(const int*, const float*, const float*,
@@ -278,7 +362,8 @@ extern "C" int tnt_interp(int planned, const void* tile_bounds,
 
 // Rank-3 banded interp: tiles [num_tiles, B2, *ext], coords [6, slots],
 // zorigins [num_chunks * subs]; out [num_chunks, B2, chunk] (only the
-// chunks the tiles own are written). Returns the launch's CUDA error.
+// chunks the tiles own are written). One channel per block (group 1).
+// Returns the launch's CUDA error.
 extern "C" int tnt_interp_banded(const void* tile_bounds,
                                  const void* zorigins, const void* tiles,
                                  const void* coords, void* out,
@@ -287,19 +372,22 @@ extern "C" int tnt_interp_banded(const void* tile_bounds,
   const Geometry g = tnt::geometry_from(ip);
   const EsKernel k = tnt::es_from(ip, fp);
   const tnt::Band bd = tnt::band_from(ip);
-  if (g.rank != 3 || bd.slab < 1 || bd.sublen < 1 || g.chunk % bd.sublen ||
-      bd.band > g.e[0])
+  const int threads = ip[tnt::kThreads];
+  if (g.rank != 3 || bd.slab < 1 || bd.sublen < 1 || bd.run < 1 ||
+      g.chunk % (bd.sublen * bd.run) || bd.band > g.e[0] || g.group != 1 ||
+      threads != bd.run * bd.sublen || threads > 512)
     return (int)cudaErrorInvalidValue;
-  const int subs = g.chunk / bd.sublen;
-  const dim3 grid(g.slots / g.chunk * subs,
-                  (g.batch2 + g.group - 1) / g.group);
+  // Widths 2 .. kMaxWidth (plan.MAX_KERNEL_WIDTH).
+  const BandedFn fn = banded_fn(
+      k.width, std::integer_sequence<int, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12,
+                                     13, 14, 15, 16>{});
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid(g.slots / (bd.sublen * bd.run), g.batch2);
   const int smem = ip[tnt::kSmem];
   cudaError_t err = cudaFuncSetAttribute(
-      interp_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  interp_banded_kernel<<<grid, ip[tnt::kThreads], smem,
-                         (cudaStream_t)stream>>>(
+  fn<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const int*)tile_bounds, (const int*)zorigins, (const float*)tiles,
       (const float*)coords, (float*)out, g, k, bd);
   return (int)cudaGetLastError();

@@ -51,44 +51,61 @@
 //
 // Design (banded). At the binned level's coarse geometry one tile block
 // is [136, 24, 72] per channel at the 3D headline (939 KB): four times
-// the 227 KB a block may hold, so no block can own a whole tile. A block
-// owns one axis-0 slab of a tile's rows for a channel pair instead
-// (kSlab rows; 14 at the headline), walks the tile's sub-chunks and
-// stages only those whose band [zorigins[j], + band) meets its slab: the
-// band bounds each block's work by the band, not by E0, as it bounded
-// the TPU kernel's fold. Within a staged sub-chunk, as above, each
-// thread owns one (channel, e0, e1) row of the slab; the windows come
-// from es_window_exact (the kernel argument from the fine-grid row, which
-// does not round where the TPU kernel's (hi - origin) - zo does), axis
-// 0's counted from the band origin, and rows outside [zo, zo + band) take
-// nothing. Band
-// origins need not be monotone within a tile (points keep arrival order
-// within a z-cell), so every sub-chunk is tested. The fused variant
-// gives each block (t0, t1, slab, pair) all nt2 tiles of its (t0, t1)
-// in turn: it spreads tile t2's slab, then contracts its E2 axis with
-// t2's wrap-aware, deconvolving twiddles (c, s - c, s + c: the Gauss
-// three-multiply rotation of pallas_dft._pass_a_kernel) into
+// the 227 KB a block may hold, so no block can own a whole tile. Two
+// kernels run per call. banded_windows_kernel evaluates every slot's
+// three axis windows once, one thread per slot, into a scratch [3][slots]
+// of starts and [3][slots][w] of weights: es_window_exact forms the
+// kernel argument from the fine-grid row, which does not round where the
+// TPU kernel's (hi - origin) - zo does, and axis 0 counts from the slot's
+// band origin. Then spread_banded_kernel gives a block one axis-0 slab of
+// a tile's rows for a channel group of one or two (kSlab rows; 7 at the
+// headline, 109 KB, two blocks per SM) and each warp one row of it: the
+// warp owns that row's E1 x E2 plane in every channel of the group, and
+// walks, with no block barrier, the tile's sub-chunks whose band
+// [zorigins[j], + band) holds the row. It tests 32 slots at a time
+// against the row (one ballot); the hitting lanes load their slot's
+// axis-0 weight, starts and values into registers and copy its axis-1 and
+// axis-2 windows into the warp's shared copy, and the warp takes the hits
+// in slot order: shuffled to all lanes, each hit's w x w (e1, e2) window
+// goes across the lanes, lane l taking window offsets t = l + 32 q (d1 =
+// t / w, d2 = t % w), one product per cell and channel. The lanes form
+// the products of a few hits first, then add them hit by hit, a warp
+// barrier after each hit ordering one cell's additions across lanes.
+// Within a round the lanes touch w^2 cells of at most five rows of the
+// plane, a stride of 8 banks per row: at most a 2-way bank conflict. The
+// fused variant gives each block (t0, t1, slab, pair) all nt2 tiles of
+// its (t0, t1) in turn: it spreads tile t2's slab, then contracts its E2
+// axis with t2's wrap-aware, deconvolving twiddles (c, s - c, s + c: the
+// Gauss three-multiply rotation of pallas_dft._pass_a_kernel) into
 // y [nt0, nt1, B2, E0, E1, n2], written at t2 = 0 and added to after, so
 // the t2 sum is a loop inside the block (no carry between blocks, no
 // atomics).
 //
-// Determinism: each output cell is written by exactly one thread, in slot
-// order (and t2 order), with no atomics, so every result is
-// bit-repeatable like the TPU kernel's. Shared-memory atomics (the
-// cuFINUFFT SM method) would let all threads work on every slot; that is
-// a later performance change.
+// Determinism: each output cell is written by one thread (banded: one
+// warp, whose barrier orders its lanes), in slot order (and t2 order),
+// with no atomics, so every result is bit-repeatable like the TPU
+// kernel's. Shared-memory atomics (the cuFINUFFT SM method) would let all
+// threads work on every slot, at the cost of that repeatability. Each
+// banded cell gets (w0 w1) (v w2) with the products rounded as written
+// (__fmul_rn, __fadd_rn), the rounding of the row-owner kernel this
+// design replaced, and the same slot order, so the two agree bit for bit.
 //
 // What bounds it on the H100: the kernels are latency- and
 // occupancy-bound, not bound by memory traffic (each input is read about
-// once; the banded kernels re-read a sub-chunk's coords once per slab it
-// meets). At the 2D headline (8 x 8 tiles) the grid has 64 blocks for 132
-// SMs, and only the rows a slot's window covers do work on it: w of E0
-// rows at rank 2, w^2 = 49 of the 576 rows at 3D ext (24, 24, 72); each
-// thread still tests every staged slot. At rank 3 a block of 166-207 KB
-// allows one block per SM. The design keeps the traffic minimal
-// (per-slot windows or coordinates instead of the TPU path's dense,
-// mostly-zero [sum(E), chunk] matrices) and leaves occupancy to later
-// work.
+// once). Unbanded, each thread owns a row along the last axis and tests
+// every staged slot: at the 2D headline (8 x 8 tiles) the grid has 64
+// blocks for 132 SMs, and only the rows a slot's window covers do work on
+// it (w of E0 rows at rank 2, w^2 = 49 of the 576 rows at 3D ext (24, 24,
+// 72)); at rank 3 a block of 166 KB allows one block per SM. The banded
+// kernel's row-owner predecessor did 1.2e9 such tests and serial
+// read-modify-writes for 5.5e8 useful multiply-adds at the 3D headline
+// (5.9 ms against a 0.08 ms byte bound on an H100). The warp-per-row
+// design does one ballot per 32 slots and row and puts a hit's w^2 cells
+// on the lanes in parallel; what bounds it now is the chain of each hit,
+// about 17 shared-memory or shuffle operations for a channel pair, taken
+// in order by one warp, with only 14 to 16 warps per SM (a row's planes
+// fill the shared memory): about 700 SM cycles per hit and warp at the
+// headline, the same from 3 to 16 rows a block (PERF.md).
 #include "tnt_common.cuh"
 
 namespace {
@@ -98,6 +115,9 @@ using tnt::Geometry;
 
 constexpr int kSub = 128;  // slots staged at a time (kernels/spread.py)
 constexpr int kStrip = 8;  // rows per thread in the fused epilogue
+// Threads of a banded spread block at most (kernels/spread.py): 16 warps,
+// one per slab row, so that 128 registers a thread fit.
+constexpr int kMaxBandedThreads = 512;
 
 template <int kRank, bool kPlanned>
 __global__ void spread_kernel(const int* __restrict__ tile_bounds,
@@ -204,71 +224,175 @@ __global__ void spread_kernel(const int* __restrict__ tile_bounds,
   for (int i = threadIdx.x; i < nc * cells; i += blockDim.x) dst[i] = acc[i];
 }
 
-// Adds tile `tile`'s staged sub-chunks into the slab block
-// acc[nc][nrows][E1][E2] of axis-0 rows [r0, r0 + nrows), channels c0..:
-// every sub-chunk whose band meets the slab is staged (windows evaluated
-// from the coordinates, axis 0 relative to the band origin), and each
-// thread owning a (channel, e0, e1) row adds its slots in slot order.
-// Starts with a barrier, so the caller's zero-fill of acc is complete.
+// The widest kernel that kRounds lane rounds (w^2 <= 32 kRounds) serve.
+template <int kRounds>
+__host__ __device__ constexpr int rounds_width() {
+  return kRounds == 1 ? 5 : kRounds == 2 ? 8 : kRounds == 4 ? 11 : 16;
+}
+
+// The banded spread's windows, one thread per slot of the chunks the
+// tiles own: st [3][slots] the window starts (axis 0 from the slot's band
+// origin) and ws [3][slots][w] the weights, from es_window_exact.
+template <int kW>
+__global__ void banded_windows_kernel(const int* __restrict__ tile_bounds,
+                                      const int* __restrict__ zorigins,
+                                      const float* __restrict__ coords,
+                                      float* __restrict__ ws,
+                                      int* __restrict__ st, Geometry g,
+                                      EsKernel k, tnt::Band bd) {
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = tnt::num_tiles(g);
+  if (slot >= g.slots) return;
+  const int kc = slot / g.chunk;
+  if (kc >= tile_bounds[nt]) return;  // a chunk no tile owns
+  int lo = 0, hi = nt - 1;            // the tile owning chunk kc
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tile_bounds[mid] <= kc) lo = mid; else hi = mid - 1;
+  }
+  float origin[3];
+  tnt::tile_origins<3>(g, lo, origin);
+  origin[0] = __fadd_rn(origin[0], (float)zorigins[slot / bd.sublen]);
+  float w[kW];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    st[(size_t)d * g.slots + slot] = tnt::es_window_exact<kW>(
+        coords[(size_t)d * g.slots + slot],
+        coords[(size_t)(3 + d) * g.slots + slot], origin[d], k, w);
+    float* dst = ws + ((size_t)d * g.slots + slot) * k.width;
+#pragma unroll
+    for (int j = 0; j < kW; ++j)
+      if (j < k.width) dst[j] = w[j];
+  }
+}
+
+// Adds tile `tile`'s slots into the slab block acc[group][slab][E1][E2]
+// of axis-0 rows [r0, r0 + nrows), channels c0 .. c0 + nc (nc <= 2):
+// warp r owns row r0 + r of every channel. It walks the tile's
+// sub-chunks whose band holds its row, in slot order, tests 32 slots at a
+// time against the row (one ballot) and takes the hits in order: lane l
+// covers window offsets t = l + 32 q (d1 = t / w, d2 = t % w) of the
+// hit's (e1, e2) window in every channel, and a warp barrier after each
+// hit orders one cell's additions across lanes. The warps run without a
+// block barrier.
+template <int kRounds>
 __device__ void banded_accumulate(int tile, int r0, int nrows, int c0,
                                   int nc, const int* __restrict__ tile_bounds,
                                   const int* __restrict__ zorigins,
                                   const float* __restrict__ values,
-                                  const float* __restrict__ coords,
-                                  float* acc, float* sw, float* sv, int* ss,
-                                  const Geometry& g, const EsKernel& k,
-                                  const tnt::Band& bd) {
+                                  const float* __restrict__ ws,
+                                  const int* __restrict__ st,
+                                  float* __restrict__ acc,
+                                  float* __restrict__ wwin, const Geometry& g,
+                                  const EsKernel& k, const tnt::Band& bd) {
+  // Hits whose products a lane forms before it adds them, in order.
+  constexpr int kStep = kRounds >= 8 ? 1 : 8 / kRounds;
   const int w = k.width;
-  const int e1 = g.e[1], len = g.e[2];
-  const int rows = nrows * e1;  // rows per channel
-  const int subs = g.chunk / bd.sublen;
-  float origin[3];
-  tnt::tile_origins<3>(g, tile, origin);
-  const int row = threadIdx.x;
-  const bool owner = row < nc * rows;
-  const int b = row / rows;
-  const int lr = row - b * rows;
-  const int a0 = r0 + lr / e1;  // the extended-tile axis-0 row
-  const int a1 = lr % e1;
-  float* arow = acc + row * len;
-  const int kbeg = tile_bounds[tile];
-  const int kend = tile_bounds[tile + 1];
-  for (int kc = kbeg; kc < kend; ++kc) {
-    for (int j = 0; j < subs; ++j) {
-      const int zo = zorigins[kc * subs + j];
-      if (zo >= r0 + nrows || zo + bd.band <= r0) continue;  // uniform
-      const int base = kc * g.chunk + j * bd.sublen;
-      __syncthreads();  // acc zeroed, or the previous piece consumed
-      for (int i = threadIdx.x; i < bd.sublen; i += blockDim.x) {
-        const int slot = base + i;
+  const int e1 = g.e[1], e2 = g.e[2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= nrows) return;
+  const int a0 = r0 + warp;  // the extended-tile row
+  const size_t slots = g.slots;
+  float* plane0 = acc + (size_t)warp * e1 * e2;
+  float* plane1 = plane0 + (size_t)bd.slab * e1 * e2;  // channel c0 + 1
+  // This warp's copy of the axis-1 and axis-2 windows of its 32 slots:
+  // [32][2][w], lane l's slot first.
+  float* mywin = wwin + (size_t)warp * 64 * w;
+  const float* v0 = values + (size_t)c0 * slots;
+  const float* v1 = v0 + slots;
+  int d1[kRounds], d2[kRounds];
 #pragma unroll
-        for (int d = 0; d < 3; ++d)
-          ss[d * kSub + i] = tnt::es_window_exact(
-              coords[(size_t)d * g.slots + slot],
-              coords[(size_t)(3 + d) * g.slots + slot],
-              d == 0 ? __fadd_rn(origin[0], (float)zo) : origin[d], k,
-              sw + (d * kSub + i) * w);
-        for (int c = 0; c < nc; ++c)
-          sv[c * kSub + i] = values[(size_t)(c0 + c) * g.slots + slot];
-      }
-      __syncthreads();
-      const int q0 = a0 - zo;  // this row in the band's coordinates
-      if (owner && q0 >= 0 && q0 < bd.band) {
-        for (int i = 0; i < bd.sublen; ++i) {
-          const int d0 = q0 - ss[i];
-          const int d1 = a1 - ss[kSub + i];
-          if ((unsigned)d0 >= (unsigned)w || (unsigned)d1 >= (unsigned)w)
-            continue;
-          const float wl = __fmul_rn(sw[i * w + d0],
-                                     sw[(kSub + i) * w + d1]);
-          const float v = sv[b * kSub + i];
-          const int s = ss[2 * kSub + i];
-          const float* wlast = sw + (2 * kSub + i) * w;
-          for (int q = 0; q < w; ++q) {
-            const int col = s + q;
-            if ((unsigned)col < (unsigned)len)
-              arow[col] = __fadd_rn(arow[col],
-                                    __fmul_rn(wl, __fmul_rn(v, wlast[q])));
+  for (int q = 0; q < kRounds; ++q) {
+    const int t = lane + 32 * q;
+    d1[q] = t < w * w ? t / w : -1;
+    d2[q] = t - (t / w) * w;
+  }
+  const int subs = g.chunk / bd.sublen;
+  const int sbeg = tile_bounds[tile] * subs;
+  const int send = tile_bounds[tile + 1] * subs;
+  for (int sc0 = sbeg; sc0 < send; sc0 += 32) {
+    const int sc = sc0 + lane;
+    const int zo = sc < send ? zorigins[sc] : 0;
+    unsigned held = __ballot_sync(
+        0xffffffffu, sc < send && (unsigned)(a0 - zo) < (unsigned)bd.band);
+    while (held) {
+      const int src = __ffs(held) - 1;
+      held &= held - 1u;
+      const int q0 = a0 - __shfl_sync(0xffffffffu, zo, src);  // band row
+      const int beg = (sc0 + src) * bd.sublen, end = beg + bd.sublen;
+      for (int base = beg; base < end; base += 32) {
+        // Each lane loads the parameters of its own slot, if it hits the
+        // row, and the hits go out to the warp by shuffles.
+        const int i = base + lane;
+        const int d0 = i < end ? q0 - st[i] : -1;
+        const bool hit = (unsigned)d0 < (unsigned)w;
+        unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (m == 0u) continue;
+        float mw0 = 0.0f, mv0 = 0.0f, mv1 = 0.0f;
+        int ms1 = 0, ms2 = 0;
+        __syncwarp();  // the previous group's windows are consumed
+        if (hit) {
+          mw0 = ws[(size_t)i * w + d0];
+          ms1 = st[slots + i];
+          ms2 = st[2 * slots + i];
+          mv0 = v0[i];
+          mv1 = nc > 1 ? v1[i] : 0.0f;
+          const float* src1 = ws + (slots + i) * w;
+          const float* src2 = ws + (2 * slots + i) * w;
+          float* dst = mywin + lane * 2 * w;
+          for (int j = 0; j < w; ++j) {
+            dst[j] = src1[j];
+            dst[w + j] = src2[j];
+          }
+        }
+        __syncwarp();
+        while (m) {
+          // kStep hits at a time: first every product and cell (reads of
+          // the windows only), then the adds, hit by hit in slot order.
+          float val0[kStep][kRounds], val1[kStep][kRounds];
+          int at[kStep][kRounds];
+#pragma unroll
+          for (int h = 0; h < kStep; ++h) {
+            const bool any = m != 0u;  // uniform
+            const int src2 = any ? __ffs(m) - 1 : 0;
+            if (any) m &= m - 1u;
+            const float w0 = __shfl_sync(0xffffffffu, mw0, src2);
+            const float x0 = __shfl_sync(0xffffffffu, mv0, src2);
+            const float x1 = __shfl_sync(0xffffffffu, mv1, src2);
+            const int s1 = __shfl_sync(0xffffffffu, ms1, src2);
+            const int s2 = __shfl_sync(0xffffffffu, ms2, src2);
+            const float* w1 = mywin + src2 * 2 * w;
+            const float* w2 = w1 + w;
+#pragma unroll
+            for (int q = 0; q < kRounds; ++q) {
+              const int c1 = s1 + d1[q], c2 = s2 + d2[q];
+              const bool ok = any && d1[q] >= 0 &&
+                              (unsigned)c1 < (unsigned)e1 &&
+                              (unsigned)c2 < (unsigned)e2;
+              at[h][q] = ok ? c1 * e2 + c2 : -1;
+              const float wl = ok ? __fmul_rn(w0, w1[d1[q]]) : 0.0f;
+              const float wz = ok ? w2[d2[q]] : 0.0f;
+              val0[h][q] = __fmul_rn(wl, __fmul_rn(x0, wz));
+              val1[h][q] = __fmul_rn(wl, __fmul_rn(x1, wz));
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < kStep; ++h) {
+            // One hit's cells are distinct: its reads go first.
+            float old0[kRounds], old1[kRounds];
+#pragma unroll
+            for (int q = 0; q < kRounds; ++q) {
+              const int a = max(at[h][q], 0);
+              old0[q] = plane0[a];
+              if (nc > 1) old1[q] = plane1[a];
+            }
+#pragma unroll
+            for (int q = 0; q < kRounds; ++q) {
+              if (at[h][q] < 0) continue;
+              plane0[at[h][q]] = __fadd_rn(old0[q], val0[h][q]);
+              if (nc > 1) plane1[at[h][q]] = __fadd_rn(old1[q], val1[h][q]);
+            }
+            __syncwarp();
           }
         }
       }
@@ -276,21 +400,25 @@ __device__ void banded_accumulate(int tile, int r0, int nrows, int c0,
   }
 }
 
-// Rank-3 banded spread. Block (tile * nslabs + slab, channel group) ->
-// out[tile][c0..][slab rows] (kFused = false); block (t01 * nslabs +
-// slab, channel pair) -> y[t0][t1][c0, c0 + 1][slab rows][E1][n2], the
-// slab spread for each t2 in turn and contracted with that tile's
-// twiddles tw [3][nt2][E2][n2] (kFused = true).
-template <bool kFused>
-__global__ void spread_banded_kernel(const int* __restrict__ tile_bounds,
-                                     const int* __restrict__ zorigins,
-                                     const float* __restrict__ values,
-                                     const float* __restrict__ coords,
-                                     const float* __restrict__ tw,
-                                     float* __restrict__ out, Geometry g,
-                                     EsKernel k, tnt::Band bd) {
-  extern __shared__ float smem[];
-  const int w = k.width;
+// Rank-3 banded spread: one warp per slab row (of every channel of the
+// group), 32 * slab threads; ws/st the windows of banded_windows_kernel.
+// Block (tile * nslabs + slab, channel group) -> out[tile][c0..][slab
+// rows] (kFused = false); block (t01 * nslabs + slab, channel pair) ->
+// y[t0][t1][c0, c0 + 1][slab rows][E1][n2], the slab spread for each t2
+// in turn and contracted with that tile's twiddles tw [3][nt2][E2][n2]
+// (kFused = true).
+template <bool kFused, int kRounds>
+__global__ void __launch_bounds__(kMaxBandedThreads)
+    spread_banded_kernel(const int* __restrict__ tile_bounds,
+                         const int* __restrict__ zorigins,
+                         const float* __restrict__ values,
+                         const float* __restrict__ ws,
+                         const int* __restrict__ st,
+                         const float* __restrict__ tw,
+                         float* __restrict__ out, Geometry g, EsKernel k,
+                         tnt::Band bd) {
+  // acc [group][slab][E1][E2], then each warp's windows [32][2][w].
+  extern __shared__ float acc[];
   const int e0 = g.e[0], e1 = g.e[1], e2 = g.e[2];
   const int nslabs = (e0 + bd.slab - 1) / bd.slab;
   const int slab = blockIdx.x % nslabs;
@@ -298,22 +426,24 @@ __global__ void spread_banded_kernel(const int* __restrict__ tile_bounds,
   const int nrows = min(bd.slab, e0 - r0);
   const int c0 = blockIdx.y * g.group;
   const int nc = min(g.group, g.batch2 - c0);
-  const int cells = nrows * e1 * e2;  // per channel
-  float* acc = smem;                                 // [group][slab rows]
-  float* sw = acc + g.group * bd.slab * e1 * e2;     // [3][kSub][w]
-  float* sv = sw + 3 * kSub * w;                     // [group][kSub]
-  int* ss = reinterpret_cast<int*>(sv + g.group * kSub);  // [3][kSub]
+  const int cells = nrows * e1 * e2;     // per channel
+  const int stride = bd.slab * e1 * e2;  // channel stride of acc
+  float* wwin = acc + g.group * stride;
   if (!kFused) {
     const int tile = blockIdx.x / nslabs;
-    for (int i = threadIdx.x; i < nc * cells; i += blockDim.x) acc[i] = 0.0f;
-    banded_accumulate(tile, r0, nrows, c0, nc, tile_bounds, zorigins,
-                      values, coords, acc, sw, sv, ss, g, k, bd);
+    for (int c = 0; c < nc; ++c)
+      for (int i = threadIdx.x; i < cells; i += blockDim.x)
+        acc[c * stride + i] = 0.0f;
+    __syncthreads();
+    banded_accumulate<kRounds>(tile, r0, nrows, c0, nc, tile_bounds,
+                               zorigins, values, ws, st, acc, wwin, g, k,
+                               bd);
     __syncthreads();
     for (int c = 0; c < nc; ++c) {
       float* dst = out + (((size_t)tile * g.batch2 + c0 + c) * e0 + r0) *
                              e1 * e2;
       for (int i = threadIdx.x; i < cells; i += blockDim.x)
-        dst[i] = acc[c * cells + i];
+        dst[i] = acc[c * stride + i];
     }
     return;
   }
@@ -323,9 +453,13 @@ __global__ void spread_banded_kernel(const int* __restrict__ tile_bounds,
   float* yr = out + (((size_t)t01 * g.batch2 + c0) * e0 + r0) * plane;
   float* yi = yr + (size_t)e0 * plane;
   for (int t2 = 0; t2 < nt2; ++t2) {
-    for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) acc[i] = 0.0f;
-    banded_accumulate(t01 * nt2 + t2, r0, nrows, c0, 2, tile_bounds,
-                      zorigins, values, coords, acc, sw, sv, ss, g, k, bd);
+    for (int c = 0; c < 2; ++c)
+      for (int i = threadIdx.x; i < cells; i += blockDim.x)
+        acc[c * stride + i] = 0.0f;
+    __syncthreads();
+    banded_accumulate<kRounds>(t01 * nt2 + t2, r0, nrows, c0, 2,
+                               tile_bounds, zorigins, values, ws, st, acc,
+                               wwin, g, k, bd);
     __syncthreads();
     const float* cw = tw + (size_t)t2 * e2 * n2;
     const float* smcw = cw + (size_t)nt2 * e2 * n2;
@@ -349,7 +483,7 @@ __global__ void spread_banded_kernel(const int* __restrict__ tile_bounds,
         for (int r = 0; r < kStrip; ++r) {
           if (r < nr) {
             const float a = acc[(r0 + r) * e2 + e];
-            const float bi = acc[cells + (r0 + r) * e2 + e];
+            const float bi = acc[stride + (r0 + r) * e2 + e];
             t1[r] += (a + bi) * c;
             t2s[r] += a * smc;
             t3[r] += bi * spc;
@@ -368,6 +502,31 @@ __global__ void spread_banded_kernel(const int* __restrict__ tile_bounds,
     }
     __syncthreads();  // acc is zeroed again for the next t2
   }
+}
+
+using BandedFn = void (*)(const int*, const int*, const float*,
+                          const float*, const int*, const float*, float*,
+                          Geometry, EsKernel, tnt::Band);
+using WindowsFn = void (*)(const int*, const int*, const float*, float*,
+                           int*, Geometry, EsKernel, tnt::Band);
+
+template <bool kFused>
+BandedFn banded_rounds(int width) {
+  if (width <= rounds_width<1>()) return spread_banded_kernel<kFused, 1>;
+  if (width <= rounds_width<2>()) return spread_banded_kernel<kFused, 2>;
+  if (width <= rounds_width<4>()) return spread_banded_kernel<kFused, 4>;
+  return spread_banded_kernel<kFused, 8>;
+}
+
+BandedFn banded_fn(bool fused, int width) {
+  return fused ? banded_rounds<true>(width) : banded_rounds<false>(width);
+}
+
+WindowsFn windows_fn(int width) {
+  if (width <= rounds_width<1>()) return banded_windows_kernel<5>;
+  if (width <= rounds_width<2>()) return banded_windows_kernel<8>;
+  if (width <= rounds_width<4>()) return banded_windows_kernel<11>;
+  return banded_windows_kernel<16>;
 }
 
 using SpreadFn = void (*)(const int*, const float*, const float*,
@@ -409,32 +568,45 @@ extern "C" int tnt_spread(int planned, const void* tile_bounds,
 }
 
 // Rank-3 banded spread: coords [6, slots], values [B2, slots] (slot
-// order), zorigins [num_chunks * subs]; fused == 0: out [num_tiles, B2,
-// *ext]; fused != 0: tw the twiddles [3][nt2][E2][n2] and out
-// y [nt0, nt1, B2, E0, E1, n2] (B2 even, group 2). Returns the launch's
+// order), zorigins [num_chunks * subs], ws [3, slots, w] and st [3, slots]
+// scratch for the windows (written here, then read by the spread);
+// fused == 0: out [num_tiles, B2, *ext]; fused != 0: tw the twiddles
+// [3][nt2][E2][n2] and out y [nt0, nt1, B2, E0, E1, n2] (B2 even, group
+// 2). Launches the windows kernel, then the spread. Returns the first
 // CUDA error.
 extern "C" int tnt_spread_banded(int fused, const void* tile_bounds,
                                  const void* zorigins, const void* values,
-                                 const void* coords, const void* tw,
-                                 void* out, const int* ip, const float* fp,
-                                 void* stream) {
+                                 const void* coords, void* ws, void* st,
+                                 const void* tw, void* out, const int* ip,
+                                 const float* fp, void* stream) {
   const Geometry g = tnt::geometry_from(ip);
   const EsKernel k = tnt::es_from(ip, fp);
   const tnt::Band bd = tnt::band_from(ip);
-  if (g.rank != 3 || bd.slab < 1 || bd.sublen < 1 ||
-      bd.sublen > kSub || g.chunk % bd.sublen)
+  if (g.rank != 3 || bd.slab < 1 || bd.sublen < 1 || g.chunk % bd.sublen ||
+      k.width < 1 || k.width > tnt::kMaxWidth || g.group < 1 ||
+      g.group > 2 || ip[tnt::kThreads] != 32 * bd.slab ||
+      ip[tnt::kThreads] > kMaxBandedThreads || (fused && g.group != 2))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  constexpr int kWindowThreads = 256;
+  windows_fn(k.width)<<<(g.slots + kWindowThreads - 1) / kWindowThreads,
+                        kWindowThreads, 0, s>>>(
+      (const int*)tile_bounds, (const int*)zorigins, (const float*)coords,
+      (float*)ws, (int*)st, g, k, bd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int nslabs = (g.e[0] + bd.slab - 1) / bd.slab;
   const int outer = fused ? g.nt[0] * g.nt[1] : tnt::num_tiles(g);
   const dim3 grid(outer * nslabs, (g.batch2 + g.group - 1) / g.group);
   const int smem = ip[tnt::kSmem];
-  auto fn = fused ? spread_banded_kernel<true> : spread_banded_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const BandedFn fn = banded_fn(fused != 0, k.width);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<grid, ip[tnt::kThreads], smem, (cudaStream_t)stream>>>(
+  fn<<<grid, ip[tnt::kThreads], smem, s>>>(
       (const int*)tile_bounds, (const int*)zorigins, (const float*)values,
-      (const float*)coords, (const float*)tw, (float*)out, g, k, bd);
+      (const float*)ws, (const int*)st, (const float*)tw, (float*)out, g, k,
+      bd);
   return (int)cudaGetLastError();
 }
 

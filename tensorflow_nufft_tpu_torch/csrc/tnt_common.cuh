@@ -18,17 +18,22 @@ namespace tnt {
 constexpr int kMaxWidth = 16;   // plan.MAX_KERNEL_WIDTH
 constexpr int kMaxHorner = 32;  // fit_horner_coeffs: degree <= 24
 constexpr int kMaxRank = 3;
+// The coordinate of padded slots (binning.SENTINEL): the banded interp
+// leaves a sub-chunk whose first slot holds it (all its slots are padded)
+// out of the rows it stages.
+constexpr float kSentinel = -1.0e6f;
 
 // Integer launch parameters, in this order (kernels/_build.py). Per-axis
 // entries past the rank are 1. kDerivAxis is the interp's phi' axis, -1
 // for none. The banded kernels also read kBand (axis-0 band rows), kSlab
 // (axis-0 rows a block owns or stages at a time), kSubLen (slots per
-// sub-chunk, the unit of a band origin) and kN2 (the fused epilogue's
-// axis-2 modes); the others take 0 there.
+// sub-chunk, the unit of a band origin), kN2 (the fused epilogue's
+// axis-2 modes) and kRun (sub-chunks one interp block serves); the others
+// take 0 there.
 enum IParam {
   kRank, kNt0, kNt1, kNt2, kTile0, kTile1, kTile2, kPad, kE0, kE1, kE2,
   kChunk, kBatch2, kGroup, kSlots, kWidth, kNHorner, kThreads, kSmem,
-  kDerivAxis, kBand, kSlab, kSubLen, kN2, kNumIParams
+  kDerivAxis, kBand, kSlab, kSubLen, kN2, kRun, kNumIParams
 };
 // Float launch parameters; the Horner coefficients follow kHorner0.
 enum FParam { kHalfWidth, kC2, kBeta, kC, kHorner0 };
@@ -87,9 +92,10 @@ inline EsKernel es_from(const int* ip, const float* fp) {
 // The axis-0 band of the rank-3 banded kernels.
 struct Band {
   int band;    // rows a sub-chunk touches, from its origin zorigins[j]
-  int slab;    // axis-0 rows per block (spread) or per staging (interp)
+  int slab;    // axis-0 rows per block (spread) or per piece (interp)
   int sublen;  // slots per sub-chunk
   int n2;      // fused epilogue: modes along axis 2
+  int run;     // interp: sub-chunks per block
 };
 
 inline Band band_from(const int* ip) {
@@ -98,6 +104,7 @@ inline Band band_from(const int* ip) {
   b.slab = ip[kSlab];
   b.sublen = ip[kSubLen];
   b.n2 = ip[kN2];
+  b.run = ip[kRun];
   return b;
 }
 
@@ -183,12 +190,14 @@ __device__ __forceinline__ int es_window(float hi, float lo, float origin,
 // in [128, 136) at the binned level's tile 128), as the TPU kernels'
 // (hi - origin) - zo does: at the 3D headline that took the binned
 // level's err_impl from 4.7e-7 to 5.9e-6 on an H100 (PERF.md).
+// kW bounds the window array (the width when it is a template constant).
+template <int kW = kMaxWidth>
 __device__ __forceinline__ int es_window_exact(float hi, float lo,
                                                float origin,
                                                const EsKernel& k, float* w) {
   const float c = ceilf(__fsub_rn(hi, k.half_width));
 #pragma unroll
-  for (int j = 0; j < kMaxWidth; ++j) {
+  for (int j = 0; j < kW; ++j) {
     if (j < k.width) {
       const float z = __fsub_rn(__fsub_rn(__fadd_rn(c, (float)j), hi), lo);
       w[j] = es_eval(z, k);

@@ -169,6 +169,53 @@ def mats_payload_bytes(geom: TileGeometry) -> int:
     return 4 * geom.num_chunks * geom.chunk * sum(geom.ext)
 
 
+# The JAX package's rule for when a rank-3 binned plan keeps its geometry
+# (pallas_spread.streaming_group_size and the terms it reads): a layout
+# rule, ported like MATS_BYTES_BUDGET because the slot surface exposes the
+# layout it picks. No kernel of the port reads these numbers; they model
+# a TPU program's memory, not a Hopper block's.
+VMEM_RESIDENT_BUDGET = 12 * 2 ** 20
+MAX_CHANNELS = 8
+NBUF = 4
+
+
+def _stack_bytes_streaming(geom: TileGeometry, batch2: int,
+                           band: Optional[int] = None) -> int:
+    if geom.rank != 3:
+        return 4 * batch2 * max(geom.ext) * geom.chunk
+    e0, e1, e2 = geom.ext
+    if band:
+        e0 = band
+    sub = min(SUB, geom.chunk)
+    return 4 * (7 * e0 * e1 * sub + 3 * batch2 * e0 * e1 * e2)
+
+
+def _scratch_bytes_streaming(geom: TileGeometry, batch2: int,
+                             band: Optional[int] = None) -> int:
+    per_chunk = (sum(geom.ext) + 8) * geom.chunk
+    out_stream = 2 * batch2 * geom.chunk
+    mref = 0
+    if geom.rank == 3:
+        mref = (sum(geom.ext[1:]) if band else sum(geom.ext)) * geom.chunk
+    return (4 * (NBUF * per_chunk + out_stream + mref)
+            + _stack_bytes_streaming(geom, batch2, band))
+
+
+def streaming_group_size(geom: TileGeometry,
+                         band: Optional[int] = None) -> int:
+    """The JAX package's channel group of its per-tile-grid kernels on
+    ``geom`` (with ``band``: the banded ones); 0 where not even a channel
+    pair fits its memory model, and then the JAX plan re-plans."""
+    g = MAX_CHANNELS
+    while g >= 2:
+        block = g * int(np.prod(geom.ext)) * 4
+        if block + _scratch_bytes_streaming(geom, g, band) <= \
+                VMEM_RESIDENT_BUDGET:
+            return g
+        g -= 2
+    return 0
+
+
 def sort_cell_size(geom: TileGeometry) -> int:
     """Axis-0 cell of z-ordered binning: fine enough that a sub-chunk's
     axis-0 span stays tight, coarse enough that the (tile, cell) keys

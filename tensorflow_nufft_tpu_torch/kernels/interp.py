@@ -23,11 +23,12 @@ and 3). Four entry points launch the hand-written Hopper kernels of
 ``binning.scatter_chunked`` brings them to point order. Each CUDA entry
 point counts its launches in its ``launches`` attribute.
 
-What bounds the kernel on the H100 and what its design does about it is
-in the source note of ``csrc/interp.cu``: one block per tile and channel
-group (per sub-chunk and channel group, banded) stages the tile's block
-(its band rows) in shared memory and one thread per slot forms its
-windows and contracts them with the block.
+What bounds the kernels on the H100 and what their design does about it
+is in the source note of ``csrc/interp.cu``: one block per tile and
+channel group stages the tile's block in shared memory and one thread per
+slot forms its windows and contracts them with the block; banded, one
+block per chunk and channel stages the union of the chunk's bands in
+double-buffered pieces with asynchronous copies.
 """
 
 from __future__ import annotations
@@ -130,21 +131,31 @@ interp_unplanned_cuda.launches = 0
 interp_deriv_cuda.launches = 0
 
 
-def banded_shape(geom: TileGeometry, batch2: int, band: int):
-    """(group, slab, threads, smem bytes) of a banded interp launch: the
-    channel group and axis-0 rows staged at a time ([group, slab, E1,
-    E2] in shared memory; the whole band where it fits for one channel)
-    and one thread per (channel, slot) of a sub-chunk."""
+# Slots one banded interp block serves at most (one thread each).
+BANDED_SLOTS = 512
+
+
+def banded_shape(geom: TileGeometry):
+    """(slab, run, threads, smem bytes) of a banded interp launch: a block
+    serves ``run`` consecutive sub-chunks of one chunk (the most that
+    divide the chunk within ``BANDED_SLOTS``), one thread per slot, for
+    one channel, and stages the union of their bands in two buffers of
+    ``slab`` axis-0 rows [E1, E2], as many as let two blocks share an
+    SM (one, where a single row per buffer does not fit that)."""
     plane = 4 * geom.ext[1] * geom.ext[2]
     sublen = min(SUB, geom.chunk)
-    slab = min(band, _build.SMEM_LIMIT // plane)
+    subs = geom.chunk // sublen
+    run = max(r for r in range(1, subs + 1)
+              if subs % r == 0 and r * sublen <= BANDED_SLOTS)
+    # Two blocks per SM: half the SM's 228 KB, less each block's 1 KB.
+    slab = min(geom.ext[0], (114 * 1024 - 1024) // (2 * plane))
+    if slab < 1:
+        slab = min(geom.ext[0], _build.SMEM_LIMIT // (2 * plane))
     if slab < 1:
         raise ValueError(
-            f"banded interp kernel: one axis-0 row of ext {geom.ext} does "
+            f"banded interp kernel: two axis-0 rows of ext {geom.ext} do "
             f"not fit one thread block's shared memory")
-    slab = -(-band // -(-band // slab))
-    group = min(batch2, _build.SMEM_LIMIT // (plane * slab), 1024 // sublen)
-    return group, slab, group * sublen, group * slab * plane
+    return slab, run, run * sublen, 2 * slab * plane
 
 
 def interp_banded_cuda(tiles: torch.Tensor, tile_bounds: torch.Tensor,
@@ -161,11 +172,11 @@ def interp_banded_cuda(tiles: torch.Tensor, tile_bounds: torch.Tensor,
     need(tile_bounds, "tile_bounds", torch.int32, (geom.num_tiles + 1,))
     need(coords, "coords", torch.float32, (6, slots))
     need(band.zorigins, "zorigins", torch.int32, (slots // sublen,))
-    group, slab, threads, smem = banded_shape(geom, batch2, band.band)
+    slab, run, threads, smem = banded_shape(geom)
     lib = _build.library()
     ints, floats = _build.kernel_params(
-        geom, plan, batch2, group, threads, smem, band=band.band,
-        slab=slab, sublen=sublen)
+        geom, plan, batch2, 1, threads, smem, band=band.band, slab=slab,
+        sublen=sublen, run=run)
     # Zeros: chunks past tile_bounds[-1] are never written by the kernel.
     out = torch.zeros((geom.num_chunks, batch2, geom.chunk),
                       dtype=torch.float32, device=tiles.device)

@@ -24,7 +24,8 @@ and 3). Four entry points launch the hand-written Hopper kernels of
   banded`` and ``_spread_kernel_split_banded``: the planned rank-3
   binned level, z-ordered binning whose sub-chunks touch only a band of
   axis-0 rows (``binning.BandInfo``), windows evaluated in the kernel.
-  A block owns an axis-0 slab of a tile for a channel pair
+  A first kernel evaluates every slot's windows once; then a block owns
+  an axis-0 slab of a tile for one or two channels, one warp per row
   (``banded_shape``).
 - ``spread_dfta_cuda`` replaces ``pallas_spread._spread_kernel_split_
   banded_dfta``: the banded spread with the axis-2 mode-DFT pass as an
@@ -36,12 +37,14 @@ tensors and ``chip_smoke.py`` holds each kernel to them on the card.
 Each CUDA entry point counts its launches in its ``launches``
 attribute.
 
-What bounds the kernel on the H100 and what its design does about it is
-in the source note of ``csrc/spread.cu``; in short: one block per tile
-and channel group keeps the tile's halo block in shared memory, each
-thread owns fixed rows along the last axis and adds slots in order
-(deterministic, no atomics), and only the rows a slot's window covers do
-work on it.
+What bounds the kernels on the H100 and what their design does about it
+is in the source note of ``csrc/spread.cu``; in short: a block keeps a
+tile's halo block (banded: an axis-0 slab of it) in shared memory and
+every output cell has one owner that adds the slots in order
+(deterministic, no atomics). Unbanded, each thread owns a row along the
+last axis; banded, each warp owns a row's planes of a channel pair,
+takes the slots that hit its row in order and spreads each slot's
+(e1, e2) window across its lanes.
 """
 
 from __future__ import annotations
@@ -133,24 +136,33 @@ spread_planned_cuda.launches = 0
 spread_unplanned_cuda.launches = 0
 
 
+# Warps of a banded spread block at most, one per slab row
+# (kMaxBandedThreads / 32 in csrc/spread.cu).
+BANDED_WARPS = 16
+# Shared memory of a banded spread block at most: two blocks per SM (half
+# its 228 KB, less the 1 KB each block reserves).
+BANDED_SMEM = 113 * 1024
+
+
 def banded_shape(geom: TileGeometry, batch2: int, width: int,
                  fused: bool = False):
     """(group, slab, threads, smem bytes) of a banded spread launch: a
-    channel pair (the fused epilogue needs one) and the most axis-0 rows
-    whose [group, slab, E1, E2] block, staging buffers and one thread per
-    (channel, e0, e1) row fit one Hopper block, evened out over E0."""
+    channel pair (the fused epilogue needs one) or a single channel, and
+    the most axis-0 rows, one warp each with its [group, E1, E2] planes
+    and its copy of 32 slots' axis-1 and axis-2 windows, that let two
+    blocks share an SM (one, where a row does not fit that), evened out
+    over E0."""
     group = 2 if fused else min(batch2, 2)
     e0, e1, e2 = geom.ext
-    staging = 4 * (3 * (SUB * width + SUB) + group * SUB)
-    most = min((_build.SMEM_LIMIT - staging) // (4 * group * e1 * e2),
-               1024 // (group * e1), e0)
-    if most < 1:
+    row = 4 * (group * e1 * e2 + 64 * width)
+    fit = BANDED_SMEM // row or _build.SMEM_LIMIT // row
+    if fit < 1:
         raise ValueError(
-            f"banded spread kernel: one axis-0 row of ext {geom.ext} does "
-            f"not fit one thread block")
+            f"banded spread kernel: one axis-0 row of ext {geom.ext} does not "
+            f"fit one thread block")
+    most = min(fit, BANDED_WARPS, e0)
     slab = -(-e0 // -(-e0 // most))
-    threads = -(-group * slab * e1 // 32) * 32
-    return group, slab, threads, staging + 4 * group * slab * e1 * e2
+    return group, slab, 32 * slab, row * slab
 
 
 def _launch_banded(values_pl, tile_bounds, geom: TileGeometry, plan,
@@ -183,14 +195,18 @@ def _launch_banded(values_pl, tile_bounds, geom: TileGeometry, plan,
     ints, floats = _build.kernel_params(
         geom, plan, batch2, group, threads, smem, band=band.band,
         slab=slab, sublen=sublen, n2=n2)
-    out = torch.empty(shape, dtype=f32, device=values_pl.device)
-    with torch.cuda.device(values_pl.device):
+    dev = values_pl.device
+    out = torch.empty(shape, dtype=f32, device=dev)
+    # The slots' windows, evaluated once per call by the first kernel.
+    ws = torch.empty((3, slots, plan.width), dtype=f32, device=dev)
+    st = torch.empty((3, slots), dtype=i32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tnt_spread_banded(
             int(fused), tile_bounds.data_ptr(), band.zorigins.data_ptr(),
-            values_pl.data_ptr(), coords.data_ptr(),
-            twiddles.data_ptr() if fused else 0, out.data_ptr(), ints,
-            floats, stream)
+            values_pl.data_ptr(), coords.data_ptr(), ws.data_ptr(),
+            st.data_ptr(), twiddles.data_ptr() if fused else 0,
+            out.data_ptr(), ints, floats, stream)
     _build.check(rc, "banded spread kernel launch")
     if fused:
         return out

@@ -339,11 +339,17 @@ class PlannedNufft:
             geom = binning.choose_geometry(plan.fine_shape, plan.width, m,
                                            banded=True)
         self._bin(geom, zorder)
-        if zorder and self.band_info is None and geom != unbanded:
-            # The band degenerated (sparse or clustered axis-0 spans): the
-            # JAX plan re-plans on the unbanded geometry.
-            if not binning.geometry_valid(unbanded):
+        band = self.band_info.band if self.band_info else None
+        if zorder and not binning.streaming_group_size(geom, band):
+            # The JAX plan's re-plan rule (PlannedNufft._ensure_viable): its
+            # memory model rejects this band (wide or degenerate axis-0
+            # spans), so it re-plans on the unbanded geometry, or runs
+            # unplanned where that one is rejected too.
+            if (not binning.geometry_valid(unbanded)
+                    or not binning.streaming_group_size(unbanded)):
                 self.level = "none"
+                self.geom = self.binned = self.coords = None
+                self.band_info = None
                 return
             self._bin(unbanded, zorder)
 

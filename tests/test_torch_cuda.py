@@ -340,9 +340,13 @@ def _bands(op):
 
 
 @pytest.mark.parametrize("grid,m,clustered", BINNED_CASES)
-@pytest.mark.parametrize("b2", (2, 4))
+@pytest.mark.parametrize("b2", (1, 2, 3, 4))
 def test_banded_kernels_match_plain(dev, monkeypatch, grid, m, clustered,
                                     b2):
+    """B2 1 and 3 reach a spread block of one channel (alone, and as the
+    last group); the degenerate band is wider than a spread slab and an
+    interp piece, so a band meets several slabs and is staged in pieces.
+    The fused spread takes channel pairs: even B2 only."""
     op = _binned_plan(monkeypatch, grid, m, clustered, dev)
     geom, tb, coords = op.geom, op.binned.tile_bounds, op.coords
     rng = np.random.default_rng(b2)
@@ -351,7 +355,12 @@ def test_banded_kernels_match_plain(dev, monkeypatch, grid, m, clustered,
     tiles = torch.from_numpy(rng.standard_normal(
         geom.tiles + (b2,) + geom.ext).astype(np.float32)).to(dev)
     twiddles = dfta_twiddles(op.plan, geom, dev)
-    for band in _bands(op):
+    bands = _bands(op)
+    assert bands[1].band > max(
+        spread.banded_shape(geom, 2, op.plan.width)[1],
+        interp.banded_shape(geom)[0])
+    fused = b2 % 2 == 0
+    for band in bands:
         before = (spread.spread_banded_cuda.launches,
                   interp.interp_banded_cuda.launches,
                   spread.spread_dfta_cuda.launches)
@@ -359,17 +368,18 @@ def test_banded_kernels_match_plain(dev, monkeypatch, grid, m, clustered,
                                          coords=coords, band=band)
         _close(spread.spread_banded_cuda(values_pl, tb, geom, op.plan,
                                          coords, band), want)
-        _close(spread.spread_dfta_cuda(values_pl, tb, geom, op.plan, coords,
-                                       band, twiddles),
-               spread.dfta_plain(want, twiddles))
+        if fused:
+            _close(spread.spread_dfta_cuda(values_pl, tb, geom, op.plan,
+                                           coords, band, twiddles),
+                   spread.dfta_plain(want, twiddles))
         _close(interp.interp_banded_cuda(tiles, tb, geom, op.plan, coords,
                                          band),
                interp.interp_tiles_plain(tiles, tb, geom, op.plan,
                                          coords=coords, band=band))
         assert (spread.spread_banded_cuda.launches,
                 interp.interp_banded_cuda.launches,
-                spread.spread_dfta_cuda.launches) == tuple(
-                    n + 1 for n in before)
+                spread.spread_dfta_cuda.launches) == (
+                    before[0] + 1, before[1] + 1, before[2] + fused)
 
 
 @pytest.mark.parametrize("batch", (1, 2))
@@ -397,6 +407,16 @@ def test_banded_spread_is_deterministic(dev, monkeypatch):
     first = spread.spread_banded_cuda(*args)
     for _ in range(3):
         assert torch.equal(first, spread.spread_banded_cuda(*args))
+
+
+def test_banded_interp_is_deterministic(dev, monkeypatch):
+    op = _binned_plan(monkeypatch, (32, 32, 64), 20000, False, dev)
+    tiles = torch.randn(op.geom.tiles + (2,) + op.geom.ext, device=dev)
+    args = (tiles, op.binned.tile_bounds, op.geom, op.plan, op.coords,
+            op.band_info)
+    first = interp.interp_banded_cuda(*args)
+    for _ in range(3):
+        assert torch.equal(first, interp.interp_banded_cuda(*args))
 
 
 @pytest.mark.parametrize("grid,m,clustered", BINNED_CASES[:2])
