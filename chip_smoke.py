@@ -78,11 +78,24 @@ Phases:
    the JAX plan keeps its dense matrices and runs TPU rows 3 and 12):
    a planned type-1 and its adjoint with launch counting, held to the
    unplanned transforms; the planned spread and interp held and timed.
-13. Training kernels: the derivative interp (phi' on one axis) on each
+13. Large extended tiles (larger than one thread block's shared
+   memory): unplanned planar.nufft type-1 and type-2 at 3D 256^3 modes
+   on the 3D headline's 800,000 points (fine grid 320^3, sigma 1.25,
+   width 10, 2000 tiles of ext (32, 32, 80)), then at 2D 150^2 on the 2D
+   headline's points (one tile of ext (308, 308)); launch counts of
+   each. Gates: err_total (complex128 NUDFT; 3D on 4096-element subsets)
+   below 10 * tol and err_impl (the float64 plain pipeline) below tol,
+   or, where the port's float32 plain pipeline of the same plan does not
+   reach those (its float32 floor: sigma 1.25 in 3D, the tile-origin
+   kernel argument of one 308-wide tile in 2D), below 4x that
+   pipeline's own errors, the census rule of phase 7 applied to both.
+   Then the spread and interp kernels held to their plain versions at
+   both geometries and timed.
+14. Training kernels: the derivative interp (phi' on one axis) on each
    axis at the 2D headline and on axis 0 at the 3D headline, and the
    unplanned spread at 6, 16 and 32 channels (2D) and 6 (3D), against
    their plain versions, timed.
-14. 2D training: the headline points as a learnable [65536, 2] tensor
+15. 2D training: the headline points as a learnable [65536, 2] tensor
    and a multicoil image x [8, 256, 256, 2]; loss 0.5 |A(x; k) - y|^2
    with A the type-2 NUFFT and y made with a perturbed trajectory.
    Step-1 gradients gated: err_total < 10 * tol against complex128
@@ -91,20 +104,23 @@ Phases:
    the float64 plain pipeline on the card; the planned form (x only,
    through adjoint()); three Adam steps whose loss must fall; one
    type-1-loss step (batch 3); launch counts and times per step.
-15. 2D spread-only: planar.interp and planar.spread on the 512^2 fine
+16. 2D spread-only: planar.interp and planar.spread on the 512^2 fine
    grid, forward and backward, against the same calls on CPU tensors,
    and the points gradient against a float64 central difference of the
    plain ops at a few points.
-16. 3D training: one forward + backward of the type-2 loss at the 3D
+17. 3D training: one forward + backward of the type-2 loss at the 3D
    headline (batch 1), gated on 4096-element subsets, timed; then the
-   3D spread-only ops as in 15, without the CPU comparison.
+   3D spread-only ops as in 16, without the CPU comparison.
 
 With --profile: for each transform, plan build and training step, the
 CUDA-event median, the device busy time per call from torch.profiler
 (the sum of the device activities of 20 calls, / 20), the idle share
 1 - busy / event time, and the largest device items.
 
-Prints the kernels as one JSON line, then the nvidia-smi line, then, last,
+Before the JSON, each rewritten spread and interp kernel's time is
+printed beside the block-per-tile kernel's that PERF.md records, its
+bound and its launches. Prints the kernels as one JSON line, then the
+nvidia-smi line, then, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 
 Usage: python3 chip_smoke.py [--profile]
@@ -344,6 +360,30 @@ KERNELS = {
                               f"{_PS}:1011", "planned3d_mats"),
     "interp3d_planned_mats": ("interp.interp_planned_cuda", "interp.cu",
                               f"{_PI}:373", "planned3d_mats"),
+    # Extended tiles larger than one thread block's shared memory, through
+    # the unplanned transforms: 3D 256^3 modes at the 3D headline's points
+    # (width 10, ext (32, 32, 80)) and 2D 150^2 (one tile of ext (308,
+    # 308)).
+    "spread3d_unplanned_large": ("spread.spread_unplanned_cuda", "spread.cu",
+                                 f"{_PS}:638", "large3d"),
+    "interp3d_unplanned_large": ("interp.interp_unplanned_cuda", "interp.cu",
+                                 f"{_PI}:218", "large3d"),
+    "spread2d_unplanned_large": ("spread.spread_unplanned_cuda", "spread.cu",
+                                 f"{_PS}:582", "large2d"),
+    "interp2d_unplanned_large": ("interp.interp_unplanned_cuda", "interp.cu",
+                                 f"{_PI}:218", "large2d"),
+}
+# Wrapper times of the block-per-tile spread and interp kernels that the
+# row-slab kernels replaced, at the same shapes, as PERF.md section 6
+# records them (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's;
+# the large-tile rows have none (those kernels did not launch there).
+PARENT_MS = {
+    "spread_planned": 0.4451, "spread_unplanned": 0.5215,
+    "spread3d_planned_mats": 1.1505, "spread3d_unplanned": 5.2645,
+    "spread_split_resident": 0.4976, "spread_split": 0.6004,
+    "interp_planned": 0.1292, "interp_unplanned": 0.1372,
+    "interp3d_unplanned": 2.6644, "interp_deriv": 0.1386,
+    "interp3d_deriv": 2.6061, "interp3d_planned_mats": 1.5040,
 }
 # Kernels each main-path phase must launch (one entry per wrapper).
 PHASE_KERNELS = {
@@ -369,6 +409,10 @@ PHASE_KERNELS = {
     "planned3d_mats": ("spread3d_planned_mats", "interp3d_planned_mats",
                        "fold3d", "truncate_deconvolve3d", "amplify_pad3d",
                        "extend_tiles3d"),
+    "large3d": ("spread3d_unplanned_large", "interp3d_unplanned_large",
+                "fold3d", "truncate_deconvolve3d", "amplify_pad3d",
+                "extend_tiles3d"),
+    "large2d": ("spread2d_unplanned_large", "interp2d_unplanned_large"),
 }
 
 
@@ -432,13 +476,13 @@ def hold(name, kernel, plain, results):
     res["max_abs_err"] = max(res["max_abs_err"], err)
 
 
-def time_pair(name, kernel, plain, results, work):
-    """Times ``kernel`` and ``plain`` (5 runs: it is no yardstick of
-    speed) and records them with the bound of ``work`` = (bytes,
-    operations)."""
+def time_pair(name, kernel, plain, results, work, plain_reps=5):
+    """Times ``kernel`` and ``plain`` (``plain_reps`` runs: it is no
+    yardstick of speed) and records them with the bound of ``work`` =
+    (bytes, operations)."""
     res = results[name]
     res["ms"] = cuda_ms(kernel)
-    res["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
+    res["plain_ms"] = cuda_ms(plain, reps=plain_reps, warmup=1)
     res["bound_ms"], res["bound_by"] = bound(*work)
     log(f"time {name}: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
@@ -503,21 +547,21 @@ def kernel_phase(rng, points, dev):
     return results
 
 
-def exact2d_type2(f, x, sign):
+def exact2d_type2(f, x, sign, n=GRID):
     """Type-2 NUDFT in complex128 of modes f [B, n, n] (CMCL order) at
     points x [M, 2]: exp(sign i k.x) -> [B, M]."""
     import torch
-    k = torch.arange(GRID, dtype=torch.float64, device=x.device) - GRID // 2
+    k = torch.arange(n, dtype=torch.float64, device=x.device) - n // 2
     ax = torch.exp(sign * 1j * torch.outer(x[:, 0], k))
     ay = torch.exp(sign * 1j * torch.outer(x[:, 1], k))
     return torch.sum(ax * (ay @ f.transpose(1, 2)), dim=-1)
 
 
-def exact2d_type1(c, x, sign):
+def exact2d_type1(c, x, sign, n=GRID):
     """Type-1 NUDFT in complex128 of point values c [B, M] at x [M, 2]
     onto the n x n modes: exp(sign i k.x) -> [B, n, n]."""
     import torch
-    k = torch.arange(GRID, dtype=torch.float64, device=x.device) - GRID // 2
+    k = torch.arange(n, dtype=torch.float64, device=x.device) - n // 2
     ax = torch.exp(sign * 1j * torch.outer(x[:, 0], k))
     ay = torch.exp(sign * 1j * torch.outer(x[:, 1], k))
     return (ax[None] * c[..., None]).transpose(1, 2) @ ay
@@ -797,6 +841,214 @@ def planned_mats_phase_3d(points3, dev):
     return launches, results
 
 
+LARGE3 = (256, 256, 256)
+LARGE2 = (150, 150)
+# The geometries the port's choose_geometry gives there: 2000 tiles of
+# ext (32, 32, 80) at width 10 (the plan's sigma drops to 1.25 above
+# 144^3), and one tile of ext (308, 308).
+LARGE_GEOMETRY = {3: dict(fine_shape=(320, 320, 320), ext=(32, 32, 80),
+                          tiles=(20, 20, 5)),
+                  2: dict(fine_shape=(300, 300), ext=(308, 308),
+                          tiles=(1, 1))}
+
+
+def large_kernels(rank, pts, plan, dev, results):
+    """The unplanned spread and interp at the large geometry of ``rank``
+    against their plain versions (B2 = 2), timed."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+    from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
+    geom, binned = bin_for_plan(pts, plan)
+    got = {k: getattr(geom, k) for k in LARGE_GEOMETRY[rank]}
+    used = int(binned.tile_bounds[-1]) * geom.chunk
+    log(f"large {rank}D plan: width {plan.width} sigma {plan.sigma}; "
+        f"geometry {got} chunk {geom.chunk} chunks {geom.num_chunks} (used "
+        f"{int(binned.tile_bounds[-1])}); spread launch "
+        f"{spread.launch_shape(geom, 2, plan.width)} (group, slab, lines, "
+        f"threads, smem); interp launch {interp.launch_shape(geom)} (slab, "
+        f"slots, threads, smem)")
+    if got != LARGE_GEOMETRY[rank]:
+        raise RuntimeError(f"large {rank}D geometry {got}")
+    coords = binning.build_coords_payload(binned)
+    tb = binned.tile_bounds
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    m = pts.shape[0]
+    values_pl = binning.build_values_payload(
+        torch.randn((2, m), generator=gen, device=dev), binned)
+    tiles = torch.randn(geom.tiles + (2,) + geom.ext, generator=gen,
+                        device=dev)
+    wrap = wrappers()
+    tag = f"{rank}d_unplanned_large"
+    for kind, kernel, plain in (
+            ("spread", functools.partial(wrap[f"spread{tag}"], values_pl, tb,
+                                         geom, plan, coords),
+             functools.partial(spread.spread_tiles_plain, values_pl, tb, geom,
+                               plan, coords=coords)),
+            ("interp", functools.partial(wrap[f"interp{tag}"], tiles, tb,
+                                         geom, plan, coords),
+             functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
+                               plan, coords=coords))):
+        hold(f"{kind}{tag}", kernel, plain, results)
+        time_pair(f"{kind}{tag}", kernel, plain, results,
+                  tile_work(kind, False, geom, plan, 2, m, used),
+                  plain_reps=2)
+
+
+def floor_gates(label, got, f32, ref, exact, idx=None):
+    """The accuracy gates of a transform whose float32 floor may lie above
+    tol. err_total (against the exact NUDFT ``exact``, at the flat
+    indices ``idx`` of the output, or everywhere) and err_impl (against
+    the float64 plain pipeline ``ref``), both relative to the peak of
+    ``ref``: below 10 * tol and tol (bench.py's gates) where the float32
+    plain pipeline ``f32`` of the same plan reaches them, else below 4x
+    that pipeline's own errors (the census rule for a float32 floor above
+    tol, applied to both). Returns whether both hold."""
+    import torch
+    scale = float(ref.abs().max())
+    exact = exact.reshape(-1)
+
+    def errors(x):
+        x = x.to(torch.complex128)
+        flat = x.reshape(-1) if idx is None else x.reshape(-1)[idx]
+        return (float((flat - exact).abs().max()) / scale,
+                float((x - ref).abs().max()) / scale)
+    err_total, err_impl = errors(got)
+    total_f32, floor_f32 = errors(f32)
+    gate_total = max(10 * TOL, 4 * total_f32)
+    gate_impl = max(TOL, 4 * floor_f32)
+    log(f"{label}: err_total (vs exact NUDFT) {err_total:.3e} (gate < "
+        f"{gate_total:.3e}; f32 plain pipeline {total_f32:.3e}; below "
+        f"10 * tol: {err_total < 10 * TOL}); err_impl (vs f64 plain "
+        f"pipeline) {err_impl:.3e} (gate < {gate_impl:.3e}; floor_f32 "
+        f"{floor_f32:.3e}; below tol: {err_impl < TOL})")
+    return err_total < gate_total and err_impl < gate_impl
+
+
+def large_tiles_phase(points3, points, dev):
+    """Extended tiles larger than one thread block's shared memory,
+    through the unplanned planar.nufft a user calls: type-1 and type-2 at
+    3D 256^3 modes on the 3D headline's 800,000 points (gated as the 3D
+    census: err_total against complex128 NUDFTs on 4096-element subsets,
+    err_impl against the float64 plain pipeline with the floor_f32 rule),
+    then at 2D 150^2 on the 2D headline's 65,536 points (bench.py's
+    gates: the exact NUDFT, and the float64 plain pipeline on the CPU
+    below tol); launch counts of each; then the spread and interp
+    kernels held to their plain versions at both geometries and
+    timed."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.planar import from_planar, to_planar
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    rng = np.random.default_rng(SEED + 11)
+    phases, results = {}, {}
+    # 3D.
+    m3 = points3.shape[0]
+    z = (rng.standard_normal(m3) + 1j * rng.standard_normal(m3)).astype(
+        np.complex64)
+    modes = (rng.standard_normal(LARGE3)
+             + 1j * rng.standard_normal(LARGE3)).astype(np.complex64)
+    pts = torch.from_numpy(points3).to(dev)
+    srcs = {"t1": to_planar(z).to(dev), "t2": to_planar(modes).to(dev)}
+    reset_launches()
+    outs = {"t1": tnt.planar.nufft(srcs["t1"], pts, grid_shape=LARGE3,
+                                   transform_type="type_1", tol=TOL),
+            "t2": tnt.planar.nufft(srcs["t2"], pts, transform_type="type_2",
+                                   tol=TOL)}
+    torch.cuda.synchronize()
+    phases["large3d"] = read_launches("large3d")
+    sub = np.random.default_rng(SEED + 13)
+    idx = {"t1": torch.from_numpy(np.sort(sub.choice(
+               int(np.prod(LARGE3)), SUBSET, replace=False))).to(dev),
+           "t2": torch.from_numpy(np.sort(sub.choice(
+               m3, SUBSET, replace=False))).to(dev)}
+    exact = {"t1": exact_type1_subset(points3, z, idx["t1"], dev,
+                                      grid=LARGE3),
+             "t2": exact_type2_subset(points3, modes, idx["t2"], -1.0, dev,
+                                      grid=LARGE3)}
+    del modes
+    failed = []
+    for key, ttype in (("t1", "type_1"), ("t2", "type_2")):
+        spec = dict(transform_type=ttype, fft_direction="forward", rank=3,
+                    grid_shape=LARGE3, tol=TOL, points_range=1)
+        ref = from_planar(plain_pipeline(
+            srcs[key][None].double(), pts.double(),
+            make_plan(PlanSpec(dtype_name="complex128", **spec)))[0])
+        f32 = from_planar(plain_pipeline(
+            srcs[key][None], pts,
+            make_plan(PlanSpec(dtype_name="complex64", **spec)))[0])
+        out = outs[key]
+        expect = LARGE3 + (2,) if key == "t1" else (m3, 2)
+        if tuple(out.shape) != expect or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"large 3D {key}: shape {tuple(out.shape)} "
+                               f"or non-finite values")
+        if not floor_gates(f"large 3D {key} ({LARGE3[0]}^3 modes, {m3} "
+                           f"points, {SUBSET} subset)", from_planar(out),
+                           f32, ref, exact[key], idx[key]):
+            failed.append(f"3d {key}")
+        del ref, f32
+    for key, fn in (("t1", lambda: tnt.planar.nufft(
+            srcs["t1"], pts, grid_shape=LARGE3, transform_type="type_1",
+            tol=TOL)), ("t2", lambda: tnt.planar.nufft(
+                srcs["t2"], pts, transform_type="type_2", tol=TOL))):
+        log(f"time large 3D {key} unplanned: {cuda_ms(fn, reps=5):.4f} ms")
+    del outs, srcs
+    torch.cuda.empty_cache()
+    large_kernels(3, pts, make_plan(PlanSpec("type_1", "forward", 3, LARGE3,
+                                             "complex64", TOL, 1)), dev,
+                  results)
+    del pts
+    torch.cuda.empty_cache()
+    # 2D.
+    n = LARGE2[0]
+    m2 = points.shape[0]
+    z2 = (rng.standard_normal(m2) + 1j * rng.standard_normal(m2)).astype(
+        np.complex64)
+    modes2 = (rng.standard_normal(LARGE2)
+              + 1j * rng.standard_normal(LARGE2)).astype(np.complex64)
+    pts2 = torch.from_numpy(points).to(dev)
+    reset_launches()
+    outs = {"t1": tnt.planar.nufft(to_planar(z2).to(dev), pts2,
+                                   grid_shape=LARGE2, transform_type="type_1",
+                                   tol=TOL),
+            "t2": tnt.planar.nufft(to_planar(modes2).to(dev), pts2,
+                                   transform_type="type_2", tol=TOL)}
+    torch.cuda.synchronize()
+    phases["large2d"] = read_launches("large2d")
+    x64 = torch.from_numpy(points.astype(np.float64))
+    exact = {"t1": exact2d_type1(torch.from_numpy(z2.astype(np.complex128))
+                                 .to(dev)[None], x64.to(dev), -1.0, n)[0],
+             "t2": exact2d_type2(torch.from_numpy(modes2.astype(
+                 np.complex128)).to(dev)[None], x64.to(dev), -1.0, n)[0]}
+    exact = {key: v.cpu() for key, v in exact.items()}
+    # The port's plain pipelines on the CPU, float64 and float32.
+    plain = {}
+    for dtype, cdtype in ((np.float64, np.complex128),
+                          (np.float32, np.complex64)):
+        x = torch.from_numpy(points.astype(dtype))
+        plain[dtype] = {
+            "t1": from_planar(tnt.planar.nufft(
+                to_planar(z2.astype(cdtype)), x, grid_shape=LARGE2,
+                transform_type="type_1", tol=TOL)),
+            "t2": from_planar(tnt.planar.nufft(
+                to_planar(modes2.astype(cdtype)), x,
+                transform_type="type_2", tol=TOL))}
+    for key, out in outs.items():
+        expect = LARGE2 + (2,) if key == "t1" else (m2, 2)
+        if tuple(out.shape) != expect or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"large 2D {key}: shape {tuple(out.shape)} "
+                               f"or non-finite values")
+        if not floor_gates(f"large 2D {key} ({n}^2 modes, {m2} points)",
+                           from_planar(out).cpu(), plain[np.float32][key],
+                           plain[np.float64][key], exact[key]):
+            failed.append(f"2d {key}")
+    if failed:
+        raise RuntimeError(f"large-tile accuracy gates failed: {failed}")
+    large_kernels(2, pts2, make_plan(PlanSpec("type_1", "forward", 2, LARGE2,
+                                              "complex64", TOL, 1)), dev,
+                  results)
+    return phases, results
+
+
 def plain_pipeline(source, points, plan):
     """The port's plain versions composed directly, with no dispatch: the
     reference pipelines of the 3D and training gates. source: [B, M, 2]
@@ -825,19 +1077,20 @@ def plain_pipeline(source, points, plan):
         batch, 2, -1).movedim(1, -1)
 
 
-def mode_freqs(flat, dev):
+def mode_freqs(flat, dev, grid=GRID3):
     """[S, 3] float64 frequencies k = i - n//2 of flat mode indices."""
     import torch
-    half = torch.tensor([n // 2 for n in GRID3], device=dev)
-    return (torch.stack(torch.unravel_index(flat, GRID3), dim=-1)
+    half = torch.tensor([n // 2 for n in grid], device=dev)
+    return (torch.stack(torch.unravel_index(flat, grid), dim=-1)
             - half).double()
 
 
-def exact_type1_subset(points, z, idx, dev, sign=-1.0):
+def exact_type1_subset(points, z, idx, dev, sign=-1.0, grid=GRID3):
     """Type-1 NUDFT (exp(sign i k.x), forward by default) in complex128 at
-    the flat mode indices ``idx``, summed over all points in chunks."""
+    the flat mode indices ``idx`` of ``grid``, summed over all points in
+    chunks."""
     import torch
-    k = mode_freqs(idx, dev)                                # [S, 3]
+    k = mode_freqs(idx, dev, grid)                          # [S, 3]
     x = torch.as_tensor(points, device=dev).double()
     c = torch.as_tensor(z, device=dev).to(torch.complex128)
     out = torch.zeros(len(idx), dtype=torch.complex128, device=dev)
@@ -847,9 +1100,10 @@ def exact_type1_subset(points, z, idx, dev, sign=-1.0):
     return out
 
 
-def exact_type2_subset(points, modes, idx, direction_sign, dev):
+def exact_type2_subset(points, modes, idx, direction_sign, dev,
+                       grid=GRID3):
     """Type-2 NUDFT in complex128 at the points ``idx``, summed over all
-    modes in chunks."""
+    modes (of ``grid``) in chunks."""
     import torch
     x = torch.as_tensor(points, device=dev).double()[idx]  # [S, 3]
     f = torch.as_tensor(modes, device=dev).to(torch.complex128).reshape(-1)
@@ -857,7 +1111,7 @@ def exact_type2_subset(points, modes, idx, direction_sign, dev):
     step = 16384
     for lo in range(0, f.numel(), step):
         k = mode_freqs(torch.arange(lo, min(lo + step, f.numel()),
-                                    device=dev), dev)
+                                    device=dev), dev, grid)
         phase = direction_sign * (x @ k.T)                  # [S, chunk]
         out += torch.polar(torch.ones_like(phase), phase) @ f[lo:lo + step]
     return out
@@ -1738,6 +1992,10 @@ def main():
                                                                    dev)
     results.update(mats_results)
     torch.cuda.empty_cache()
+    large_phases, large_results = large_tiles_phase(points3, points, dev)
+    phases.update(large_phases)
+    results.update(large_results)
+    torch.cuda.empty_cache()
     results.update(kernel_phase_train(rng, points, points3, dev))
     train_launches, cases = train_phase_2d(points, dev)
     phases.update(train_launches)
@@ -1753,6 +2011,12 @@ def main():
         points3, GEOMETRY3["fine_shape"], dev, cpu_reference=False)
     if profile:
         profile_phase("train3d", dict(cases3, **only3))
+    for name, parent in PARENT_MS.items():
+        res, phase = results[name], KERNELS[name][3]
+        log(f"time {name}: row-slab kernel {res['ms']:.4f} ms, "
+            f"block-per-tile kernel {parent:.4f} ms (PERF.md), "
+            f"bound {res['bound_ms']:.4f} ms, launches "
+            f"{phases[phase][name]} in {phase}")
     kernels = []
     for name, (_, source, replaces, phase) in KERNELS.items():
         res = results[name]

@@ -25,15 +25,17 @@ constexpr float kSentinel = -1.0e6f;
 
 // Integer launch parameters, in this order (kernels/_build.py). Per-axis
 // entries past the rank are 1. kDerivAxis is the interp's phi' axis, -1
-// for none. The banded kernels also read kBand (axis-0 band rows), kSlab
-// (axis-0 rows a block owns or stages at a time), kSubLen (slots per
-// sub-chunk, the unit of a band origin), kN2 (the fused epilogue's
-// axis-2 modes) and kRun (sub-chunks one interp block serves); the others
-// take 0 there.
+// for none. The row-slab layout of the spread and interp blocks reads
+// kSlab (axis-0 rows a spread block owns, or an interp piece stages; 0:
+// the interp reads the tile array in place), kLines (axis-1 lines a
+// spread block owns), kSubLen and kRun (an interp block serves kRun
+// pieces of kSubLen slots); the banded kernels also read kBand (axis-0
+// band rows; kSubLen is then a sub-chunk, the unit of a band origin) and
+// kN2 (the fused epilogue's axis-2 modes). Unused entries are 0.
 enum IParam {
   kRank, kNt0, kNt1, kNt2, kTile0, kTile1, kTile2, kPad, kE0, kE1, kE2,
   kChunk, kBatch2, kGroup, kSlots, kWidth, kNHorner, kThreads, kSmem,
-  kDerivAxis, kBand, kSlab, kSubLen, kN2, kRun, kNumIParams
+  kDerivAxis, kBand, kSlab, kSubLen, kN2, kRun, kLines, kNumIParams
 };
 // Float launch parameters; the Horner coefficients follow kHorner0.
 enum FParam { kHalfWidth, kC2, kBeta, kC, kHorner0 };
@@ -89,19 +91,22 @@ inline EsKernel es_from(const int* ip, const float* fp) {
   return k;
 }
 
-// The axis-0 band of the rank-3 banded kernels.
+// The row-slab layout of the spread and interp blocks, and the axis-0
+// band of the rank-3 banded kernels.
 struct Band {
   int band;    // rows a sub-chunk touches, from its origin zorigins[j]
   int slab;    // axis-0 rows per block (spread) or per piece (interp)
-  int sublen;  // slots per sub-chunk
+  int lines;   // spread: axis-1 lines per block
+  int sublen;  // slots per sub-chunk (interp: per piece of a block)
   int n2;      // fused epilogue: modes along axis 2
-  int run;     // interp: sub-chunks per block
+  int run;     // interp: pieces of sublen slots per block
 };
 
 inline Band band_from(const int* ip) {
   Band b;
   b.band = ip[kBand];
   b.slab = ip[kSlab];
+  b.lines = ip[kLines];
   b.sublen = ip[kSubLen];
   b.n2 = ip[kN2];
   b.run = ip[kRun];
@@ -110,6 +115,18 @@ inline Band band_from(const int* ip) {
 
 __host__ __device__ inline int num_tiles(const Geometry& g) {
   return g.nt[0] * g.nt[1] * g.nt[2];
+}
+
+// The tile owning chunk kc < tile_bounds[nt] (tile t owns chunks
+// tile_bounds[t] .. tile_bounds[t + 1]).
+__device__ __forceinline__ int owner_tile(const int* __restrict__ tile_bounds,
+                                          int nt, int kc) {
+  int lo = 0, hi = nt - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tile_bounds[mid] <= kc) lo = mid; else hi = mid - 1;
+  }
+  return lo;
 }
 
 // Extended-tile origin (tile index * tile - pad) of each axis of the
@@ -164,14 +181,16 @@ __device__ __forceinline__ float es_eval_deriv(float z, const EsKernel& k) {
 // i0 = ceil(s - w/2), and returns i0 (clamped so far-out or NaN
 // coordinates give an out-of-range start instead of an undefined
 // conversion). Padded slots carry hi = SENTINEL, so their window starts
-// far outside the tile.
+// far outside the tile. kW bounds the window array (the width when it
+// is a template constant).
+template <int kW = kMaxWidth>
 __device__ __forceinline__ int es_window(float hi, float lo, float origin,
                                          const EsKernel& k, float* w,
                                          bool deriv = false) {
   const float s = __fsub_rn(hi, origin);
   const float f0 = ceilf(__fsub_rn(s, k.half_width));
 #pragma unroll
-  for (int j = 0; j < kMaxWidth; ++j) {
+  for (int j = 0; j < kW; ++j) {
     if (j < k.width) {
       const float z =
           __fsub_rn(__fsub_rn(__fadd_rn(f0, (float)j), s), lo);

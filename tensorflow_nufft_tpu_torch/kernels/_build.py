@@ -171,13 +171,13 @@ def _per_axis(values, rank: int):
 def kernel_params(geom, plan, batch2: int, group: int, threads: int,
                   smem: int, deriv_axis: int = -1, band: int = 0,
                   slab: int = 0, sublen: int = 0, n2: int = 0,
-                  run: int = 0):
+                  run: int = 0, lines: int = 0):
     """The (int, float) host parameter arrays of a spread or interp
     launch, in the order of ``IParam``/``FParam`` in
     ``csrc/tnt_common.cuh``. ``deriv_axis`` (-1 for none) is the axis
     whose window the unplanned interp evaluates as phi'; ``band``,
-    ``slab``, ``sublen``, ``n2`` and ``run`` are the banded kernels'
-    (``Band``)."""
+    ``slab``, ``sublen``, ``n2``, ``run`` and ``lines`` are the row-slab
+    layout and the band (``Band``)."""
     horner = tuple(plan.horner) if plan.horner is not None else ()
     rank = geom.rank
     ints = ((rank,) + _per_axis(geom.tiles, rank)
@@ -185,7 +185,7 @@ def kernel_params(geom, plan, batch2: int, group: int, threads: int,
             + _per_axis(geom.ext, rank)
             + (geom.chunk, batch2, group, geom.num_slots, plan.width,
                len(horner), threads, smem, deriv_axis, band, slab, sublen,
-               n2, run))
+               n2, run, lines))
     hw = float(plan.half_width)
     floats = (hw, 2.0 / (hw * hw), plan.beta, plan.c) + horner
     # ctypes.c_float rounds each double to float32, as the plain

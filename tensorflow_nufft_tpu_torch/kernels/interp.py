@@ -24,11 +24,13 @@ and 3). Four entry points launch the hand-written Hopper kernels of
 point counts its launches in its ``launches`` attribute.
 
 What bounds the kernels on the H100 and what their design does about it
-is in the source note of ``csrc/interp.cu``: one block per tile and
-channel group stages the tile's block in shared memory and one thread per
-slot forms its windows and contracts them with the block; banded, one
-block per chunk and channel stages the union of the chunk's bands in
-double-buffered pieces with asynchronous copies.
+is in the source note of ``csrc/interp.cu``: no block holds a whole tile
+(one extended tile exceeds a block's shared memory on many geometries);
+a block serves up to 512 slots of one chunk for one channel, one thread
+per slot with its windows in registers, and stages the axis-0 rows its
+windows touch (banded: the union of its sub-chunks' bands) in
+double-buffered pieces with asynchronous copies (``launch_shape``,
+``banded_shape``).
 """
 
 from __future__ import annotations
@@ -44,19 +46,36 @@ from tensorflow_nufft_tpu_torch.kernels import _build, binning
 from tensorflow_nufft_tpu_torch.kernels.binning import (
     SUB, BandInfo, KernelWeights, TileGeometry)
 
-_THREADS = 256
+# Slots one interp block serves at most (one thread each; kMaxSlotThreads
+# in csrc/interp.cu).
+MAX_SLOTS = 512
 
 
-def launch_shape(geom: TileGeometry, batch2: int):
-    """(group, threads, smem bytes) of an interp launch: the largest
-    channel group whose [group, *ext] block fits one Hopper block."""
-    cells = int(np.prod(geom.ext))
-    group = min(batch2, _build.SMEM_LIMIT // (4 * cells))
-    if group < 1:
-        raise ValueError(
-            f"interp kernel: extended tile {geom.ext} does not fit one "
-            f"thread block's shared memory")
-    return group, _THREADS, 4 * group * cells
+def piece_rows(geom: TileGeometry) -> int:
+    """Axis-0 rows of one of an interp block's two staging buffers: as
+    many as let two blocks share an SM (one, where a single row per
+    buffer does not fit that), at most E0; 0 where two rows do not fit a
+    block, and the block then reads the tile array in place."""
+    plane = 4 * int(np.prod(geom.ext[1:]))
+    # Two blocks per SM: half the SM's 228 KB, less each block's 1 KB.
+    slab = (114 * 1024 - 1024) // (2 * plane)
+    if slab < 1:
+        slab = _build.SMEM_LIMIT // (2 * plane)
+    return min(geom.ext[0], slab)
+
+
+def launch_shape(geom: TileGeometry):
+    """(slab, slots, threads, smem bytes) of an interp launch: a block
+    serves ``slots`` consecutive slots of one chunk (the most that divide
+    the chunk within ``MAX_SLOTS``), one thread each (``threads``: whole
+    warps), for one channel, and stages the axis-0 rows their windows
+    touch in two buffers of ``slab`` rows (``piece_rows``). Every
+    geometry fits."""
+    slots = next(d for d in range(min(geom.chunk, MAX_SLOTS), 0, -1)
+                 if geom.chunk % d == 0)
+    slab = piece_rows(geom)
+    plane = 4 * int(np.prod(geom.ext[1:]))
+    return slab, slots, -(-slots // 32) * 32, 2 * slab * plane
 
 
 def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
@@ -78,9 +97,10 @@ def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
         need(coords, "coords", f32, (2 * rank, slots))
         ptrs = (coords.data_ptr(), 0, 0)
     lib = _build.library()
-    group, threads, smem = launch_shape(geom, batch2)
-    ints, floats = _build.kernel_params(geom, plan, batch2, group, threads,
-                                        smem, deriv_axis)
+    slab, per, threads, smem = launch_shape(geom)
+    ints, floats = _build.kernel_params(geom, plan, batch2, 1, threads,
+                                        smem, deriv_axis, slab=slab,
+                                        sublen=per, run=1)
     # Zeros: chunks past tile_bounds[-1] are never written by the kernel.
     out = torch.zeros((geom.num_chunks, batch2, geom.chunk),
                       dtype=torch.float32, device=tiles.device)
@@ -131,30 +151,22 @@ interp_unplanned_cuda.launches = 0
 interp_deriv_cuda.launches = 0
 
 
-# Slots one banded interp block serves at most (one thread each).
-BANDED_SLOTS = 512
-
-
 def banded_shape(geom: TileGeometry):
     """(slab, run, threads, smem bytes) of a banded interp launch: a block
     serves ``run`` consecutive sub-chunks of one chunk (the most that
-    divide the chunk within ``BANDED_SLOTS``), one thread per slot, for
-    one channel, and stages the union of their bands in two buffers of
-    ``slab`` axis-0 rows [E1, E2], as many as let two blocks share an
-    SM (one, where a single row per buffer does not fit that)."""
-    plane = 4 * geom.ext[1] * geom.ext[2]
+    divide the chunk within ``MAX_SLOTS``), one thread per slot, for one
+    channel, and stages the union of their bands in two buffers of
+    ``slab`` axis-0 rows (``piece_rows``)."""
     sublen = min(SUB, geom.chunk)
     subs = geom.chunk // sublen
     run = max(r for r in range(1, subs + 1)
-              if subs % r == 0 and r * sublen <= BANDED_SLOTS)
-    # Two blocks per SM: half the SM's 228 KB, less each block's 1 KB.
-    slab = min(geom.ext[0], (114 * 1024 - 1024) // (2 * plane))
-    if slab < 1:
-        slab = min(geom.ext[0], _build.SMEM_LIMIT // (2 * plane))
+              if subs % r == 0 and r * sublen <= MAX_SLOTS)
+    slab = piece_rows(geom)
     if slab < 1:
         raise ValueError(
             f"banded interp kernel: two axis-0 rows of ext {geom.ext} do "
             f"not fit one thread block's shared memory")
+    plane = 4 * geom.ext[1] * geom.ext[2]
     return slab, run, run * sublen, 2 * slab * plane
 
 

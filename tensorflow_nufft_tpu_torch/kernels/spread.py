@@ -9,24 +9,21 @@ and 3). Four entry points launch the hand-written Hopper kernels of
   per-tile grid): precomputed per-slot windows (``KernelWeights``).
 - ``spread_unplanned_cuda`` replaces ``pallas_spread._spread_kernel_
   resident`` (rank 2) and ``_spread_kernel`` (rank 3): windows evaluated
-  in the kernel from the coords payload. It also replaces the wide-
-  channel pair ``_spread_kernel_resident_split`` and
-  ``_spread_kernel_split``, which the TPU takes once a channel group no
-  longer fits one 8-row payload beside its coordinates (2 * rank + B2 >
-  8: training's source and points gradients): coords and values are
-  separate payloads here at every width, and channels beyond one
-  block's group go to the launch grid's second dimension, the last
-  group partial (``launch_shape``). Values are always read in slot
+  on the card from the coords payload, once per slot by a first kernel.
+  It also replaces the wide-channel pair
+  ``_spread_kernel_resident_split`` and ``_spread_kernel_split``, which
+  the TPU takes once a channel group no longer fits one 8-row payload
+  beside its coordinates (2 * rank + B2 > 8: training's source and
+  points gradients): coords and values are separate payloads here at
+  every width, and channel pairs go to the launch grid's second
+  dimension, the last one partial. Values are always read in slot
   order, so the split pair's slot-order input (``values_slots``, of
   ``PlannedNufft.normal`` and ``apply_from_slots``) only skips the
   caller's gather (``dispatch.spread_tiled``).
 - ``spread_banded_cuda`` replaces ``pallas_spread._spread_kernel_
   banded`` and ``_spread_kernel_split_banded``: the planned rank-3
   binned level, z-ordered binning whose sub-chunks touch only a band of
-  axis-0 rows (``binning.BandInfo``), windows evaluated in the kernel.
-  A first kernel evaluates every slot's windows once; then a block owns
-  an axis-0 slab of a tile for one or two channels, one warp per row
-  (``banded_shape``).
+  axis-0 rows (``binning.BandInfo``), windows evaluated on the card.
 - ``spread_dfta_cuda`` replaces ``pallas_spread._spread_kernel_split_
   banded_dfta``: the banded spread with the axis-2 mode-DFT pass as an
   epilogue, returning y [nt0, nt1, B2, E0, E1, n2].
@@ -38,13 +35,14 @@ Each CUDA entry point counts its launches in its ``launches``
 attribute.
 
 What bounds the kernels on the H100 and what their design does about it
-is in the source note of ``csrc/spread.cu``; in short: a block keeps a
-tile's halo block (banded: an axis-0 slab of it) in shared memory and
-every output cell has one owner that adds the slots in order
-(deterministic, no atomics). Unbanded, each thread owns a row along the
-last axis; banded, each warp owns a row's planes of a channel pair,
-takes the slots that hit its row in order and spreads each slot's
-(e1, e2) window across its lanes.
+is in the source note of ``csrc/spread.cu``; in short: no block holds a
+whole tile (one extended tile exceeds a block's shared memory on many
+geometries), a block owns an axis-0 slab of a tile (and of each row the
+axis-1 lines that fit) for one or two channels, one warp per row, with
+the same layout banded or not (``launch_shape``). Each warp finds the
+slots that hit its row with one ballot per 32 slots and spreads each
+hit's window across its lanes in slot order: every output cell has one
+owner and a fixed order (deterministic, no atomics).
 """
 
 from __future__ import annotations
@@ -61,23 +59,39 @@ from tensorflow_nufft_tpu_torch.kernels.binning import (
     SUB, BandInfo, KernelWeights, TileGeometry)
 
 
-def launch_shape(geom: TileGeometry, batch2: int, width: int):
-    """(group, threads, smem bytes) of a spread launch: the largest
-    channel group whose [group, *ext] block, staging buffers and one
-    thread per (channel, row along the last axis) fit one Hopper
-    block."""
-    rows = int(np.prod(geom.ext[:-1]))
-    cells = rows * geom.ext[-1]
-    staging = 4 * geom.rank * (SUB * width + SUB)
-    per_channel = 4 * (cells + SUB)
-    group = min(batch2, 1024 // rows,
-                (_build.SMEM_LIMIT - staging) // per_channel)
-    if group < 1:
+# Warps of a spread block at most, one per slab row (kMaxRowThreads / 32
+# in csrc/spread.cu), so that 128 registers a thread fit.
+ROW_WARPS = 16
+# Shared memory of a spread block at most: two blocks per SM (half its
+# 228 KB, less the 1 KB each block reserves).
+HALF_SM = 113 * 1024
+
+
+def launch_shape(geom: TileGeometry, batch2: int, width: int,
+                 fused: bool = False):
+    """(group, slab, lines, threads, smem bytes) of a spread launch, banded
+    or not: a channel pair (the fused epilogue needs one) or a single
+    channel; of each axis-0 row the axis-1 lines a block owns, all E1
+    where a row's planes [group, E1, E2] (rank 2: [group, E1]) and the
+    warp's copy of 32 slots' windows past axis 0 fit half an SM, else as
+    many as fit, evened out over E1; and the most axis-0 rows, one warp
+    each, that let two blocks share an SM, evened out over E0. Every
+    geometry fits: a line is at most E2 floats a channel."""
+    rank = geom.rank
+    group = 2 if fused else min(batch2, 2)
+    e0, e1 = geom.ext[:2]
+    line = geom.ext[2] if rank == 3 else 1
+    win = 4 * 32 * (rank - 1) * width
+    most_lines = (HALF_SM - win) // (4 * group * line)
+    if most_lines < 1:
         raise ValueError(
-            f"spread kernel: extended tile {geom.ext} does not fit one "
-            f"thread block (shared memory or 1024 threads)")
-    threads = -(-group * rows // 32) * 32
-    return group, threads, staging + group * per_channel
+            f"spread kernel: one axis-1 line of ext {geom.ext} does not fit "
+            f"one thread block")
+    lines = -(-e1 // -(-e1 // min(most_lines, e1)))
+    row = 4 * group * lines * line + win
+    most = min(HALF_SM // row, ROW_WARPS, e0)
+    slab = -(-e0 // -(-e0 // most))
+    return group, slab, lines, 32 * slab, row * slab
 
 
 def _launch(values_pl, tile_bounds, geom: TileGeometry, plan,
@@ -90,24 +104,30 @@ def _launch(values_pl, tile_bounds, geom: TileGeometry, plan,
     need = functools.partial(_build.require_cuda, "spread")
     need(values_pl, "values", f32, (batch2, slots))
     need(tile_bounds, "tile_bounds", i32, (geom.num_tiles + 1,))
+    dev = values_pl.device
     if kw is not None:
         need(kw.weights, "weights", f32, (rank, slots, plan.width))
         need(kw.starts, "starts", i32, (rank, slots))
-        ptrs = (0, kw.weights.data_ptr(), kw.starts.data_ptr())
+        ws, st, coords_ptr = kw.weights, kw.starts, 0
     else:
         need(coords, "coords", f32, (2 * rank, slots))
-        ptrs = (coords.data_ptr(), 0, 0)
+        # The slots' windows, evaluated once per call by a first kernel.
+        ws = torch.empty((rank, slots, plan.width), dtype=f32, device=dev)
+        st = torch.empty((rank, slots), dtype=i32, device=dev)
+        coords_ptr = coords.data_ptr()
     lib = _build.library()
-    group, threads, smem = launch_shape(geom, batch2, plan.width)
+    group, slab, lines, threads, smem = launch_shape(geom, batch2,
+                                                     plan.width)
     ints, floats = _build.kernel_params(geom, plan, batch2, group, threads,
-                                        smem)
+                                        smem, slab=slab, lines=lines)
     out = torch.empty((geom.num_tiles, batch2) + geom.ext,
-                      dtype=torch.float32, device=values_pl.device)
-    with torch.cuda.device(values_pl.device):
+                      dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tnt_spread(int(kw is not None), tile_bounds.data_ptr(),
-                            values_pl.data_ptr(), *ptrs, out.data_ptr(),
-                            ints, floats, stream)
+                            values_pl.data_ptr(), coords_ptr, ws.data_ptr(),
+                            st.data_ptr(), out.data_ptr(), ints, floats,
+                            stream)
     _build.check(rc, "spread kernel launch")
     return out.reshape(geom.tiles + (batch2,) + geom.ext)
 
@@ -136,35 +156,6 @@ spread_planned_cuda.launches = 0
 spread_unplanned_cuda.launches = 0
 
 
-# Warps of a banded spread block at most, one per slab row
-# (kMaxBandedThreads / 32 in csrc/spread.cu).
-BANDED_WARPS = 16
-# Shared memory of a banded spread block at most: two blocks per SM (half
-# its 228 KB, less the 1 KB each block reserves).
-BANDED_SMEM = 113 * 1024
-
-
-def banded_shape(geom: TileGeometry, batch2: int, width: int,
-                 fused: bool = False):
-    """(group, slab, threads, smem bytes) of a banded spread launch: a
-    channel pair (the fused epilogue needs one) or a single channel, and
-    the most axis-0 rows, one warp each with its [group, E1, E2] planes
-    and its copy of 32 slots' axis-1 and axis-2 windows, that let two
-    blocks share an SM (one, where a row does not fit that), evened out
-    over E0."""
-    group = 2 if fused else min(batch2, 2)
-    e0, e1, e2 = geom.ext
-    row = 4 * (group * e1 * e2 + 64 * width)
-    fit = BANDED_SMEM // row or _build.SMEM_LIMIT // row
-    if fit < 1:
-        raise ValueError(
-            f"banded spread kernel: one axis-0 row of ext {geom.ext} does not "
-            f"fit one thread block")
-    most = min(fit, BANDED_WARPS, e0)
-    slab = -(-e0 // -(-e0 // most))
-    return group, slab, 32 * slab, row * slab
-
-
 def _launch_banded(values_pl, tile_bounds, geom: TileGeometry, plan,
                    coords, band: BandInfo, twiddles=None):
     if geom.rank != 3:
@@ -178,8 +169,12 @@ def _launch_banded(values_pl, tile_bounds, geom: TileGeometry, plan,
     need(tile_bounds, "tile_bounds", i32, (geom.num_tiles + 1,))
     need(coords, "coords", f32, (6, slots))
     need(band.zorigins, "zorigins", i32, (slots // sublen,))
-    group, slab, threads, smem = banded_shape(geom, batch2, plan.width,
-                                              fused)
+    group, slab, lines, threads, smem = launch_shape(geom, batch2,
+                                                     plan.width, fused)
+    if lines != geom.ext[1]:
+        raise ValueError(
+            f"banded spread kernel: a row's planes of ext {geom.ext} do not "
+            f"fit one thread block")
     if fused:
         n2 = twiddles.shape[-1]
         need(twiddles, "twiddles", f32,
@@ -194,7 +189,7 @@ def _launch_banded(values_pl, tile_bounds, geom: TileGeometry, plan,
     lib = _build.library()
     ints, floats = _build.kernel_params(
         geom, plan, batch2, group, threads, smem, band=band.band,
-        slab=slab, sublen=sublen, n2=n2)
+        slab=slab, sublen=sublen, n2=n2, lines=lines)
     dev = values_pl.device
     out = torch.empty(shape, dtype=f32, device=dev)
     # The slots' windows, evaluated once per call by the first kernel.

@@ -138,8 +138,8 @@ def test_interp_deriv_kernel_matches_plain(dev, grid, m, tol, kev,
     ((64, 96), 2000, 12), ((256, 256), 65536, 16), ((256, 256), 65536, 32),
     ((16, 16, 64), 3000, 4), ((32, 32, 64), 20000, 6)])
 def test_wide_channel_spread_matches_plain(dev, grid, m, b2):
-    """Channel counts past one block's group (10 at the 2D headline's
-    ext 72^2, 1 at rank 3): the last group on blockIdx.y is partial."""
+    """Channel counts past one block's group (a channel pair): the
+    groups go to blockIdx.y, and the last one is partial at odd B2."""
     plan, geom, binned, _, coords = _layout(grid, m, 1e-6, dev)
     group = spread.launch_shape(geom, b2, plan.width)[0]
     assert group < b2
@@ -211,6 +211,95 @@ def test_spread_kernel_is_deterministic(dev, grid, m):
             first, spread.spread_planned_cuda(values_pl, tb, geom, plan, kw))
         assert torch.equal(first_u, spread.spread_unplanned_cuda(
             values_pl, tb, geom, plan, coords))
+
+
+# Extended tiles larger than one thread block's shared memory (and the
+# geometries of width 8 and 10): (grid, points, tol). 150^2: one tile of
+# ext (308, 308); 50^3: one tile of (108, 108, 108); 192^3 (width 10)
+# and 128^3 at 1e-7 (width 8): ext (32, 32, 64) and (32, 32, 80); 90^3:
+# ext (188, 188, 188), whose [188, 188] planes split into line ranges for
+# the spread and are read in place by the interp; (64, 96) at 1e-9:
+# width 9, the rank-2 interp's wide instantiation.
+LARGE_CASES = [
+    ((150, 150), 20000, 1e-6), ((50, 50, 50), 20000, 1e-6),
+    ((192, 192, 192), 100000, 1e-6), ((128, 128, 128), 100000, 1e-7),
+    ((90, 90, 90), 5000, 1e-6), ((64, 96), 2000, 1e-9)]
+
+
+@pytest.mark.parametrize("grid,m,tol", LARGE_CASES)
+@pytest.mark.parametrize("b2", (2, 6))
+@pytest.mark.parametrize("source", ("planned", "unplanned"))
+def test_large_tile_kernels_match_plain(dev, grid, m, tol, b2, source):
+    plan, geom, binned, kw, coords = _layout(grid, m, tol, dev)
+    rng = np.random.default_rng(b2)
+    values_pl = binning.build_values_payload(torch.from_numpy(
+        rng.standard_normal((b2, m)).astype(np.float32)).to(dev), binned)
+    tiles = torch.from_numpy(rng.standard_normal(
+        geom.tiles + (b2,) + geom.ext).astype(np.float32)).to(dev)
+    tb = binned.tile_bounds
+    weights = dict(kw=kw) if source == "planned" else dict(coords=coords)
+    arg = kw if source == "planned" else coords
+    sp = (spread.spread_planned_cuda if source == "planned"
+          else spread.spread_unplanned_cuda)
+    ip = (interp.interp_planned_cuda if source == "planned"
+          else interp.interp_unplanned_cuda)
+    before = (sp.launches, ip.launches)
+    _close(sp(values_pl, tb, geom, plan, arg),
+           spread.spread_tiles_plain(values_pl, tb, geom, plan, **weights))
+    _close(ip(tiles, tb, geom, plan, arg),
+           interp.interp_tiles_plain(tiles, tb, geom, plan, **weights))
+    assert (sp.launches, ip.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("grid,m,tol", [LARGE_CASES[0], LARGE_CASES[2],
+                                        LARGE_CASES[4]])
+def test_large_tile_interp_deriv_matches_plain(dev, grid, m, tol):
+    plan, geom, binned, _, coords = _layout(grid, m, tol, dev)
+    tiles = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        geom.tiles + (2,) + geom.ext).astype(np.float32)).to(dev)
+    tb = binned.tile_bounds
+    axis = len(grid) - 1
+    _close(interp.interp_deriv_cuda(tiles, tb, geom, plan, coords, axis),
+           interp.interp_tiles_plain(tiles, tb, geom, plan, coords=coords,
+                                     deriv_axis=axis))
+
+
+@pytest.mark.parametrize("grid", [(150, 150), (50, 50, 50)])
+@pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
+def test_large_tile_nufft_on_cuda_matches_cpu(dev, grid, transform_type):
+    m = 5000
+    rng = np.random.default_rng(11)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, len(grid))).astype(
+        np.float32))
+    shape = (1, m, 2) if transform_type == "type_1" else (1,) + grid + (2,)
+    src = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    kw = dict(grid_shape=grid if transform_type == "type_1" else None,
+              transform_type=transform_type)
+    want = tnt.planar.nufft(src, pts, **kw)
+    counter = (spread.spread_unplanned_cuda if transform_type == "type_1"
+               else interp.interp_unplanned_cuda)
+    before = counter.launches
+    got = tnt.planar.nufft(src.to(dev), pts.to(dev), **kw)
+    assert counter.launches == before + 1
+    _close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("grid,m", [((150, 150), 20000),
+                                    ((90, 90, 90), 5000)])
+def test_large_tile_kernels_are_deterministic(dev, grid, m):
+    plan, geom, binned, _, coords = _layout(grid, m, 1e-6, dev)
+    values_pl = binning.build_values_payload(
+        torch.randn(2, m, device=dev), binned)
+    tiles = torch.randn(geom.tiles + (2,) + geom.ext, device=dev)
+    tb = binned.tile_bounds
+    args = (tb, geom, plan, coords)
+    first = (spread.spread_unplanned_cuda(values_pl, *args),
+             interp.interp_unplanned_cuda(tiles, *args))
+    for _ in range(2):
+        assert torch.equal(first[0],
+                           spread.spread_unplanned_cuda(values_pl, *args))
+        assert torch.equal(first[1], interp.interp_unplanned_cuda(tiles,
+                                                                  *args))
 
 
 @pytest.mark.parametrize("grid,direction", [((16, 16, 64), "forward"),
@@ -357,7 +446,7 @@ def test_banded_kernels_match_plain(dev, monkeypatch, grid, m, clustered,
     twiddles = dfta_twiddles(op.plan, geom, dev)
     bands = _bands(op)
     assert bands[1].band > max(
-        spread.banded_shape(geom, 2, op.plan.width)[1],
+        spread.launch_shape(geom, 2, op.plan.width)[1],
         interp.banded_shape(geom)[0])
     fused = b2 % 2 == 0
     for band in bands:

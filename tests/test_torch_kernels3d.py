@@ -206,13 +206,16 @@ def test_dispatch_on_cpu_is_the_plain_version_3d(source):
 
 
 def test_launch_shapes_at_the_3d_headline():
-    """The full-size 3D geometry fits one Hopper block per (tile,
-    channel): 576 rows of E2 for the spread, 166 KB of tile block for
-    the interp, both within the 227 KB opt-in limit."""
+    """The full-size 3D geometry's launch plans: a spread block owns 6
+    axis-0 rows (one warp each, all 24 axis-1 lines) of a tile for a
+    channel pair, two blocks per SM; an interp block serves a whole chunk
+    (512 slots) for one channel and stages 8-row pieces of [24, 72]
+    planes in two buffers, two blocks per SM."""
     geom = tb.choose_geometry((256, 256, 256), 7, 800_000)
     assert (geom.tile, geom.ext, geom.tiles, geom.chunk, geom.num_chunks) \
         == ((16, 16, 64), (24, 24, 72), (16, 16, 4), 512, 2586)
-    group, threads, smem = spread.launch_shape(geom, 2, 7)
-    assert (group, threads) == (1, 576) and smem <= 232448
-    group, threads, smem = interp.launch_shape(geom, 2)
-    assert (group, smem) == (1, 4 * 24 * 24 * 72)
+    group, slab, lines, threads, smem = spread.launch_shape(geom, 2, 7)
+    assert (group, slab, lines, threads) == (2, 6, 24, 192)
+    assert smem == 6 * 4 * (2 * 24 * 72 + 64 * 7) <= spread.HALF_SM
+    slab, slots, threads, smem = interp.launch_shape(geom)
+    assert (slab, slots, threads, smem) == (8, 512, 512, 2 * 8 * 4 * 24 * 72)

@@ -1,0 +1,53 @@
+"""Launch planning of the port's spread and interp kernels (pure Python).
+
+Every geometry ``choose_geometry`` returns at ranks 2 and 3 must launch:
+a block owns an axis-0 slab of a tile (spread) or stages its rows in
+pieces (interp), never a whole tile, so extended tiles larger than one
+thread block's shared memory (2D ext 308^2 at 150^2 modes, 3D (108, 108,
+108) at 50^3, (32, 32, 80) at width 10) take the same kernels as the
+headlines. The sizes sweep the ranges that did not fit a block when it
+held a whole tile, and the headlines.
+"""
+
+import numpy as np
+import pytest
+
+from tensorflow_nufft_tpu_torch.kernels import _build, binning, interp, spread
+from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+
+SIZES = ([(2, n) for n in (121, 150, 180, 256, 300, 500)]
+         + [(3, n) for n in (13, 17, 30, 50, 90, 128, 150, 192, 256)])
+POINTS = {2: 65_536, 3: 800_000}
+
+
+def _geometry(rank, n, tol):
+    plan = make_plan(PlanSpec("type_1", "forward", rank, (n,) * rank,
+                              "complex64", tol, 1))
+    return plan, binning.choose_geometry(plan.fine_shape, plan.width,
+                                         POINTS[rank])
+
+
+@pytest.mark.parametrize("b2", (1, 2, 6, 16))
+@pytest.mark.parametrize("tol", (1e-6, 1e-7))
+@pytest.mark.parametrize("rank,n", SIZES)
+def test_launch_plans_take_every_geometry(rank, n, tol, b2):
+    plan, geom = _geometry(rank, n, tol)
+    e0, e1 = geom.ext[:2]
+
+    group, slab, lines, threads, smem = spread.launch_shape(
+        geom, b2, plan.width)
+    assert group == min(b2, 2)
+    assert 1 <= slab <= e0 and 1 <= lines <= e1
+    assert threads == 32 * slab <= 1024 and smem <= _build.SMEM_LIMIT
+    # The blocks' slabs and line ranges cover the extended tile, and the
+    # block's planes and window copies are what it asks for.
+    assert -(-e0 // slab) * slab >= e0 and -(-e1 // lines) * lines >= e1
+    line = geom.ext[2] if rank == 3 else 1
+    assert smem == 4 * slab * (group * lines * line
+                               + 32 * (rank - 1) * plan.width)
+
+    slab, slots, threads, smem = interp.launch_shape(geom)
+    assert geom.chunk % slots == 0 and slots <= threads <= 1024
+    assert threads % 32 == 0 and threads - slots < 32
+    assert 0 <= slab <= e0 and smem <= _build.SMEM_LIMIT
+    assert smem == 2 * slab * 4 * int(np.prod(geom.ext[1:]))

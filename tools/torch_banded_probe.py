@@ -10,10 +10,11 @@ runs against a tree whose launch shapes differ).
 --sweep   also times other launch shapes (spread: rows a block, one or
           two channels a warp; interp: piece rows and sub-chunks a
           block), each held to the default launch bit for bit.
---cycles  also builds a copy of csrc with clock64 counters in the banded
-          spread (under build/torch_probe/) and prints SM cycles per hit
-          and warp, hits per 32-slot test, and the block cycles summed
-          over the card against its SM cycles.
+--cycles  also builds a copy of csrc with clock64 counters in the spread
+          (under build/torch_probe/) and prints, for the banded spread,
+          SM cycles per hit and warp, hits per 32-slot test, and the
+          block cycles summed over the card against its SM cycles
+          (tools/torch_unbanded_probe.py --cycles: the unbanded one).
 
 Usage: python3 tools/torch_banded_probe.py [--sweep] [--cycles]
 """
@@ -102,41 +103,44 @@ def sweep(op, sp, ip):
         interp.banded_shape = real
 
 
-# (anchor in csrc/spread.cu, text inserted after it) for the counters.
+# (anchor in csrc/spread.cu, text, whether it goes before the anchor)
+# for the counters.
 _COUNTERS = (
-    ("namespace {\n", "__device__ unsigned long long g_probe[6];\n"),
-    ("  if (warp >= nrows) return;\n",
+    ("namespace {\n", "__device__ unsigned long long g_probe[6];\n", False),
+    ("  const bool split = !kBanded && nq < g.e[1];\n",
      "  const long long probe_t0 = clock64();\n"
-     "  unsigned long long probe_hits = 0, probe_tests = 0;\n"),
+     "  unsigned long long probe_hits = 0, probe_tests = 0;\n", False),
     ("        unsigned m = __ballot_sync(0xffffffffu, hit);\n",
-     "        probe_hits += __popc(m);\n        probe_tests += 1;\n"),
-    ("            __syncwarp();\n          }\n        }\n      }\n    }\n  }\n",
+     "        probe_hits += __popc(m);\n        probe_tests += 1;\n", False),
+    ("}\n\n// The spread: block",
      "  if (lane == 0) {\n"
      "    atomicAdd(&g_probe[0], (unsigned long long)(clock64() - probe_t0));\n"
      "    atomicAdd(&g_probe[1], probe_hits);\n"
      "    atomicAdd(&g_probe[2], probe_tests);\n"
-     "  }\n"),
-    ("  if (!kFused) {\n", "  const long long probe_b0 = clock64();\n"),
-    ("        dst[i] = acc[c * stride + i];\n    }\n",
+     "  }\n", True),
+    ("  if constexpr (!kFused) {\n", "  const long long probe_b0 = clock64();\n",
+     True),
+    ("          dst[(size_t)r * e1 * line + i] = acc[c * stride + r * sub + i];"
+     "\n    }\n",
      "    if (threadIdx.x == 0) {\n"
      "      atomicAdd(&g_probe[3], (unsigned long long)(clock64() - probe_b0));\n"
      "      atomicAdd(&g_probe[4], 1ull);\n"
-     "    }\n"),
+     "    }\n", False),
 )
 
 
-def cycles(op, sp):
-    """Rebuilds the kernels with counters and runs the spread once."""
+def cycles(sp):
+    """Rebuilds the kernels with counters and runs the spread ``sp`` (the
+    banded or the unbanded one: both warps' loops are counted) once."""
     out = ROOT / "build" / "torch_probe"
     (out / "csrc").mkdir(parents=True, exist_ok=True)
     for f in _build.CSRC.glob("*"):
         text = f.read_text()
         if f.name == "spread.cu":
-            for anchor, extra in _COUNTERS:
+            for anchor, extra, before in _COUNTERS:
                 if anchor not in text:
                     raise RuntimeError(f"probe anchor not found: {anchor!r}")
-                at = (text.index(anchor) if anchor.startswith("  if (!kF")
-                      else text.index(anchor) + len(anchor))
+                at = text.index(anchor) + (0 if before else len(anchor))
                 text = text[:at] + extra + text[at:]
             text += ('\nextern "C" int tnt_probe(unsigned long long* out, '
                      'int reset) {\n  if (reset) {\n'
@@ -186,7 +190,7 @@ def main():
     if "--sweep" in sys.argv:
         sweep(op, sp, ip)
     if "--cycles" in sys.argv:
-        cycles(op, sp)
+        cycles(sp)
 
 
 if __name__ == "__main__":
