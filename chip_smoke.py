@@ -3,6 +3,11 @@
 Drives the port's main paths (transforms and training) through the
 entry points a user calls, on the card, with no JAX:
 
+- 1D: 2^20 modes, 10^7 uniform points, tol 1e-6, seed 42 (non-uniform
+  time series and 1D readouts at FINUFFT's 1D scale): fine grid 2^21,
+  2048 tiles of ext 1032, chunk 256, 41,110 chunks; PlannedNufft takes
+  the binned level (dense matrices of 4.3e10 B); the mats size is
+  65,536 modes and 16,384 points;
 - 2D: bench.py's headline, 256^2 modes, 65,536 uniform points, tol 1e-6,
   seed 42;
 - 3D: bench_suite.py's 3d_t1_128_800k / 3d_t2_128_800k, 128^3 modes,
@@ -111,6 +116,31 @@ Phases:
 17. 3D training: one forward + backward of the type-2 loss at the 3D
    headline (batch 1), gated on 4096-element subsets, timed; then the
    3D spread-only ops as in 16, without the CPU comparison.
+18. 1D kernels at the 1D headline geometry (B2 = 2): the rank-1 spread
+   (from point-order and from slot-order values), interp and phi'
+   interp against their plain versions (1e-5 of the peak), each
+   repeated bit for bit, timed with their bounds.
+19. 1D end to end at the headline: PlannedNufft type-1 (binned level)
+   and its adjoint, planar.nufft type-1 and type-2, with launch counts
+   and no call of a plain version on the card path; gates err_total
+   against complex128 NUDFTs on 4096-element subsets and err_impl
+   against the float64 plain pipeline, at the bare gates where the
+   float32 plain pipeline reaches them, else at 4x its own errors
+   (phase 13's rule); reports the tile-0 binade crossing of the kernel
+   argument; times each transform (CUDA events); then the binned
+   level's planned surface as in phase 5.
+20. 1D mats size (65,536 modes, 16,384 points): asserts the "mats"
+   level; planned type-1, adjoint and unplanned type-1 with launch
+   counts, held to the unplanned transforms; the planned surface at the
+   mats level and at the binned level of the same size (budget
+   lowered); the planned spread and interp, the unplanned spread and the
+   slot-order spread held to their plain versions, repeated, timed.
+21. 1D training at the headline points: a type-2 loss step with x [4,
+   2^20, 2] and k [10^7, 1] learnable, gated as phase 17; a batch-3
+   type-1 loss step gated on err_impl; launch counts per step, no plain
+   version on the card path; the 1D spread-only ops with the finite
+   difference gate of phase 16 (its step scaled to the same fraction of
+   a fine-grid cell).
 
 With --profile: for each transform, plan build and training step, the
 CUDA-event median, the device busy time per call from torch.profiler
@@ -126,6 +156,7 @@ nvidia-smi line, then, last,
 Usage: python3 chip_smoke.py [--profile]
 """
 
+import contextlib
 import functools
 import json
 import statistics
@@ -372,6 +403,33 @@ KERNELS = {
                                  f"{_PS}:582", "large2d"),
     "interp2d_unplanned_large": ("interp.interp_unplanned_cuda", "interp.cu",
                                  f"{_PI}:218", "large2d"),
+    # Rank 1. The rank-1 branches of the TPU kernels (chunk_contribution,
+    # chunk_interp_values) run in whichever kernel the JAX dispatcher
+    # picks at a shape. At the 1D headline (2^20 modes, 10^7 points) the
+    # tile array (16.9 MB at B2 = 2) exceeds its 12 MiB residence budget,
+    # so unplanned and binned-level spreads take the per-tile-grid
+    # _spread_kernel (combined payload: 2 * rank + B2 <= 8 in its channel
+    # groups of 6, the training steps too), slot-order values the
+    # per-tile split one; at the mats size (65,536 modes, 16,384 points)
+    # the tile array stays resident: rows 1, 2 and, with slot-order
+    # values at the binned level, 5.
+    "spread_unplanned_1d": ("spread.spread_unplanned_cuda", "spread.cu",
+                            f"{_PS}:638", "1d"),
+    "spread_split_1d": ("spread.spread_unplanned_cuda", "spread.cu",
+                        f"{_PS}:956", "1d_slots"),
+    "interp_unplanned_1d": ("interp.interp_unplanned_cuda", "interp.cu",
+                            f"{_PI}:218", "1d"),
+    "interp_deriv_1d": ("interp.interp_deriv_cuda", "interp.cu",
+                        f"{_PI}:218 (deriv_axis)", "spread_only_1d"),
+    "spread_planned_1d": ("spread.spread_planned_cuda", "spread.cu",
+                          f"{_PS}:518", "1d_mats"),
+    "interp_planned_1d": ("interp.interp_planned_cuda", "interp.cu",
+                          f"{_PI}:152", "1d_mats"),
+    "spread_resident_1d": ("spread.spread_unplanned_cuda", "spread.cu",
+                           f"{_PS}:582", "1d_mats"),
+    "spread_split_resident_1d": ("spread.spread_unplanned_cuda",
+                                 "spread.cu", f"{_PS}:898",
+                                 "1d_binned_slots"),
 }
 # Wrapper times of the block-per-tile spread and interp kernels that the
 # row-slab kernels replaced, at the same shapes, as PERF.md section 6
@@ -413,6 +471,16 @@ PHASE_KERNELS = {
                 "fold3d", "truncate_deconvolve3d", "amplify_pad3d",
                 "extend_tiles3d"),
     "large2d": ("spread2d_unplanned_large", "interp2d_unplanned_large"),
+    "1d": ("spread_unplanned_1d", "interp_unplanned_1d"),
+    "1d_slots": ("spread_split_1d", "interp_unplanned_1d"),
+    "1d_mats": ("spread_planned_1d", "interp_planned_1d",
+                "spread_resident_1d"),
+    "1d_mats_slots": ("spread_planned_1d", "interp_planned_1d"),
+    "1d_binned_slots": ("spread_split_resident_1d", "interp_unplanned_1d"),
+    "train1d": ("spread_unplanned_1d", "interp_unplanned_1d"),
+    "train1d_type1": ("spread_unplanned_1d", "interp_unplanned_1d"),
+    "spread_only_1d": ("spread_unplanned_1d", "interp_unplanned_1d",
+                       "interp_deriv_1d"),
 }
 
 
@@ -1834,11 +1902,12 @@ def plain_spread_only(source, points, plan):
     return out * plan.kernel_scale
 
 
-def fd_gate(label, k_grad, points, terms):
+def fd_gate(label, k_grad, points, terms, step=FD_STEP):
     """The points gradient against a float64 central difference of the
     plain ops at FD_POINTS seeded points, each alone (a point's gradient
-    depends on no other point). terms: (type, source, cotangent, grid)
-    of the summed losses sum(cotangent * op(source[:, j], k_j))."""
+    depends on no other point), with a difference step of ``step`` rad.
+    terms: (type, source, cotangent, grid) of the summed losses
+    sum(cotangent * op(source[:, j], k_j))."""
     import torch
     from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
     rank = points.shape[1]
@@ -1858,9 +1927,9 @@ def fd_gate(label, k_grad, points, terms):
                     ct.double()
                 for sign in (1.0, -1.0):
                     kj = points[j:j + 1].double().clone()
-                    kj[0, a] += sign * FD_STEP
+                    kj[0, a] += sign * step
                     fd += sign * float(torch.sum(
-                        c * plain_spread_only(s, kj, plan))) / (2 * FD_STEP)
+                        c * plain_spread_only(s, kj, plan))) / (2 * step)
             worst = max(worst, abs(fd - float(k_grad[j, a])))
     scale = float(k_grad.abs().max())
     log(f"{label} k.grad vs f64 central difference at {FD_POINTS} points: "
@@ -1916,10 +1985,436 @@ def spread_only_phase(points, grid, dev, cpu_reference):
                 raise RuntimeError(f"{phase} {name} disagrees with the "
                                    f"plain versions")
     pts, g, w, c, wg = placed[dev]
+    # The step in grid units of the 2D phase (FD_STEP on 512 cells): a
+    # step of FD_STEP rad is 3.3 cells of the 1D headline's 2^21.
+    step = FD_STEP * min(1.0, 512 / max(grid))
     fd_gate(phase, got[4], pts, (("type_2", g, w, grid),
-                                 ("type_1", c, wg, grid)))
+                                 ("type_1", c, wg, grid)), step)
     timed_step(f"{phase}_step", lambda: run(dev), reps=3)
     return launches, {f"{phase}_step": lambda: run(dev)}
+
+
+# ---------------------------------------------------------------------------
+# Rank 1 (1D).
+# ---------------------------------------------------------------------------
+
+GRID1 = 2 ** 20
+NUM_POINTS1 = 10_000_000
+# The 1D geometry the port's choose_geometry gives at GRID1 / NUM_POINTS1.
+GEOMETRY1 = dict(fine_shape=(2 ** 21,), tile=(1024,), ext=(1032,),
+                 tiles=(2048,), chunk=256, num_chunks=41110)
+MATS_GRID1 = 65_536
+MATS_POINTS1 = 16_384
+TRAIN_BATCH1 = 4     # B2 = 8: the source gradient's spread
+
+
+def inputs1d():
+    """The 1D headline's points, type-1 strengths and type-2 modes (seed
+    42)."""
+    rng = np.random.default_rng(SEED)
+    points = rng.uniform(-np.pi, np.pi, (NUM_POINTS1, 1)).astype(np.float32)
+    z = (rng.standard_normal(NUM_POINTS1)
+         + 1j * rng.standard_normal(NUM_POINTS1)).astype(np.complex64)
+    modes = (rng.standard_normal(GRID1)
+             + 1j * rng.standard_normal(GRID1)).astype(np.complex64)
+    return points, z, modes
+
+
+@contextlib.contextmanager
+def no_plain_calls(label):
+    """Counts the calls of the spread and interp plain versions while a
+    card path runs (the dispatcher reaches them through their module),
+    and fails if there was one."""
+    from tensorflow_nufft_tpu_torch.kernels import interp, spread
+    saved = spread.spread_tiles_plain, interp.interp_tiles_plain
+    calls = []
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapper
+    spread.spread_tiles_plain, interp.interp_tiles_plain = map(counted,
+                                                               saved)
+    try:
+        yield
+    finally:
+        spread.spread_tiles_plain, interp.interp_tiles_plain = saved
+    log(f"{label}: plain-version calls on the card path: {len(calls)}")
+    if calls:
+        raise RuntimeError(f"{label}: the card path ran plain versions "
+                           f"{sorted(set(calls))}")
+
+
+def repeat(name, kernel):
+    """Fails unless two calls of ``kernel`` are equal bit for bit."""
+    import torch
+    if not torch.equal(kernel(), kernel()):
+        raise RuntimeError(f"{name} does not repeat bit for bit")
+    log(f"kernel {name}: repeats bit for bit")
+
+
+def kernel_phase_1d(points, dev):
+    """The rank-1 spread, interp and phi' interp at the 1D headline
+    geometry (B2 = 2) against their plain versions, repeated bit for
+    bit, and timed; the spread also from slot-order values (row 6: the
+    binned plan's normal and apply_from_slots)."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+    from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    plan = make_plan(PlanSpec("type_1", "forward", 1, (GRID1,), "complex64",
+                              TOL, 1))
+    geom, binned = bin_for_plan(torch.from_numpy(points).to(dev), plan)
+    got_geom = {k: getattr(geom, k) for k in GEOMETRY1}
+    tb = binned.tile_bounds
+    used = int(tb[-1]) * geom.chunk
+    log(f"1D plan: width {plan.width} fine {plan.fine_shape}; geometry "
+        f"{got_geom}; used chunks {int(tb[-1])}; spread launch "
+        f"{spread.launch_shape(geom, 2, plan.width)} (group, warps, lines, "
+        f"threads, smem); interp launch {interp.launch_shape(geom)} (slab, "
+        f"slots, threads, smem)")
+    if got_geom != GEOMETRY1:
+        raise RuntimeError(f"1D geometry {got_geom} != {GEOMETRY1}")
+    coords = binning.build_coords_payload(binned)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    values_pl = binning.build_values_payload(
+        torch.randn((2, NUM_POINTS1), generator=gen, device=dev), binned)
+    tiles = torch.randn(geom.tiles + (2,) + geom.ext, generator=gen,
+                        device=dev)
+    # Slot-order values as the binned plan's normal feeds them: the
+    # chunk-order interp of tiles (zero in padded and unused slots).
+    slots = interp.interp_tiles_plain(tiles, tb, geom, plan, coords=coords)
+    slots = slots.transpose(0, 1).reshape(2, -1)
+    slots = (slots / slots.abs().max()).contiguous()
+    wrap = wrappers()
+    cases = {
+        "spread_unplanned_1d": (
+            functools.partial(wrap["spread_unplanned_1d"], values_pl, tb,
+                              geom, plan, coords),
+            functools.partial(spread.spread_tiles_plain, values_pl, tb,
+                              geom, plan, coords=coords), "spread"),
+        "spread_split_1d": (
+            functools.partial(wrap["spread_split_1d"], slots, tb, geom,
+                              plan, coords),
+            functools.partial(spread.spread_tiles_plain, slots, tb, geom,
+                              plan, coords=coords), "spread"),
+        "interp_unplanned_1d": (
+            functools.partial(wrap["interp_unplanned_1d"], tiles, tb, geom,
+                              plan, coords),
+            functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
+                              plan, coords=coords), "interp"),
+        "interp_deriv_1d": (
+            functools.partial(wrap["interp_deriv_1d"], tiles, tb, geom,
+                              plan, coords, 0),
+            functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
+                              plan, coords=coords, deriv_axis=0), "interp"),
+    }
+    results = {}
+    for name, (kernel, plain, kind) in cases.items():
+        hold(name, kernel, plain, results)
+        repeat(name, kernel)
+        time_pair(name, kernel, plain, results,
+                  tile_work(kind, False, geom, plan, 2, NUM_POINTS1, used))
+    return results
+
+
+def end_to_end_1d(points, z, modes, dev):
+    """The 1D main path at the headline: PlannedNufft type-1 (the binned
+    level) and its adjoint, planar.nufft type-1 and type-2, with launch
+    counting and no plain-version call; gates err_total against
+    complex128 NUDFTs on 4096-element subsets and err_impl against the
+    float64 plain pipeline (floor_gates: the bare gates, or 4x the float32
+    plain pipeline's own errors where it misses them); reports the
+    binade crossing of tile 0's kernel argument."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.kernels.torch_ops import (
+        fold_and_rescale_split)
+    from tensorflow_nufft_tpu_torch.planar import from_planar, to_planar
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    grid = (GRID1,)
+    pts = torch.from_numpy(points).to(dev)
+    strengths = to_planar(z).to(dev)
+    modes_p = to_planar(modes).to(dev)
+    reset_launches()
+    with no_plain_calls("1d"):
+        op1 = tnt.PlannedNufft(pts, grid, transform_type="type_1", tol=TOL)
+        adj = op1.adjoint()                    # type-2, backward
+        outs = {
+            "t1_planned": op1(strengths[None])[0],
+            "t2_planned": adj(modes_p[None])[0],
+            "t1_unplanned": tnt.planar.nufft(
+                strengths, pts, grid_shape=grid, transform_type="type_1",
+                tol=TOL),
+            "t2_unplanned": tnt.planar.nufft(
+                modes_p, pts, transform_type="type_2",
+                fft_direction="backward", tol=TOL)}
+        torch.cuda.synchronize()
+    g = op1.geom
+    log(f"1D plan level {op1.level}: tiles {g.tiles} x {g.tile} ext {g.ext} "
+        f"chunk {g.chunk} chunks {g.num_chunks} (used "
+        f"{int(op1.binned.tile_bounds[-1])}); num_slots {op1.num_slots}")
+    if op1.level != "binned":
+        raise RuntimeError("the 1D headline plan did not take the binned "
+                           "level")
+    launches = read_launches("1d")
+    for name, out in outs.items():
+        expect = grid + (2,) if name.startswith("t1") else (NUM_POINTS1, 2)
+        if tuple(out.shape) != expect or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"1D {name}: shape {tuple(out.shape)} (want "
+                               f"{expect}) or non-finite values")
+    log(f"1D planned vs unplanned max abs diff: type-1 "
+        f"{float((outs['t1_planned'] - outs['t1_unplanned']).abs().max()):.3e}"
+        f", type-2 "
+        f"{float((outs['t2_planned'] - outs['t2_unplanned']).abs().max()):.3e}")
+    sub = np.random.default_rng(SEED + 21)
+    idx = {"t1": torch.from_numpy(np.sort(sub.choice(
+               GRID1, SUBSET, replace=False))).to(dev),
+           "t2": torch.from_numpy(np.sort(sub.choice(
+               NUM_POINTS1, SUBSET, replace=False))).to(dev)}
+    exact = {"t1": exact_type1_subset(points, z, idx["t1"], dev, grid=grid),
+             "t2": exact_type2_subset(points, modes, idx["t2"], 1.0, dev,
+                                      grid=grid)}
+    # Points whose tile-origin kernel argument s = hi - origin crosses a
+    # binade in tile 0 (origin -4): hi in [1020, 1024).
+    hi = fold_and_rescale_split(pts, g.fine_shape, 1)[0][:, 0]
+    near = (hi >= 1020) & (hi < 1024)
+    failed = []
+    for key, ttype, direction, src in (
+            ("t1", "type_1", "forward", strengths),
+            ("t2", "type_2", "backward", modes_p)):
+        spec = dict(transform_type=ttype, fft_direction=direction, rank=1,
+                    grid_shape=grid, tol=TOL, points_range=1)
+        ref = from_planar(plain_pipeline(
+            src[None].double(), pts.double(),
+            make_plan(PlanSpec(dtype_name="complex128", **spec)))[0])
+        f32 = from_planar(plain_pipeline(
+            src[None], pts, make_plan(PlanSpec(dtype_name="complex64",
+                                               **spec)))[0])
+        for name in (f"{key}_planned", f"{key}_unplanned"):
+            if not floor_gates(f"1D {name} ({GRID1} modes, {NUM_POINTS1} "
+                               f"points, {SUBSET} subset)",
+                               from_planar(outs[name]), f32, ref,
+                               exact[key], idx[key]):
+                failed.append(name)
+        if key == "t2":
+            scale = float(ref.abs().max())
+            diff = (from_planar(outs["t2_unplanned"]).to(torch.complex128)
+                    - ref).abs()
+            low = (f32.to(torch.complex128) - ref).abs()
+            there = float(diff[near].max()) / scale if near.any() else 0.0
+            log(f"1D binade crossing in tile 0 (hi in [1020, 1024)): "
+                f"{int(near.sum())} points, err_impl there {there:.3e} "
+                f"(f32 plain pipeline {float(low[near].max()) / scale:.3e}"
+                f"), elsewhere {float(diff[~near].max()) / scale:.3e}; "
+                f"shows above tol: {there > TOL}")
+        del ref, f32
+    if failed:
+        raise RuntimeError(f"1D accuracy gates failed: {failed}")
+    cases = transform_cases(op1, adj, pts, strengths, modes_p, grid,
+                            dict(fft_direction="backward"))
+    for name, fn in cases.items():
+        ms = cuda_ms(fn, reps=10)
+        log(f"time 1d_{name}: {ms:.4f} ms"
+            + ("" if name == "plan_build" else
+               f" per transform, {NUM_POINTS1 / (ms * 1e-3):.4e} points/s"))
+    return launches, op1, adj, pts, strengths, modes_p
+
+
+def planned_mats_phase_1d(points, dev):
+    """The 1D mats size: 65,536 modes and the first 16,384 headline
+    points, where the JAX plan keeps its dense matrices (193.5 MiB) and
+    its tile array stays resident (TPU rows 1, 2 and 10). A planned
+    type-1, its adjoint and an unplanned type-1 with launch counting,
+    held to the unplanned transforms; the planned surface of that plan
+    and of the binned plan at the same size (the budget lowered, as the
+    JAX package's per-plan payload budget of its batched plans does: its
+    slot-order spread is row 5); the kernels held to their plain versions
+    and timed."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+    rng = np.random.default_rng(SEED + 22)
+    m, grid = MATS_POINTS1, (MATS_GRID1,)
+    pts = torch.from_numpy(points[:m]).to(dev)
+    strengths = torch.from_numpy(rng.standard_normal((1, m, 2)).astype(
+        np.float32)).to(dev)
+    modes = torch.from_numpy(rng.standard_normal((1,) + grid + (2,)).astype(
+        np.float32)).to(dev)
+    phases = {}
+    reset_launches()
+    with no_plain_calls("1d_mats"):
+        op = tnt.PlannedNufft(pts, grid, transform_type="type_1", tol=TOL)
+        t1 = op(strengths)
+        t2 = op.adjoint()(modes)
+        u1 = tnt.planar.nufft(strengths, pts, grid_shape=grid,
+                              transform_type="type_1", tol=TOL)
+        torch.cuda.synchronize()
+    geom = op.geom
+    log(f"1d_mats plan level {op.level}: tiles {geom.tiles} ext {geom.ext} "
+        f"chunk {geom.chunk} chunks {geom.num_chunks} (used "
+        f"{int(op.binned.tile_bounds[-1])}); dense matrices of the JAX "
+        f"plan {binning.mats_payload_bytes(geom):.4e} B")
+    if op.level != "mats":
+        raise RuntimeError("the 1D mats-size plan did not take the mats "
+                           "level")
+    phases["1d_mats"] = read_launches("1d_mats")
+    u2 = tnt.planar.nufft(modes, pts, fft_direction="backward", tol=TOL)
+    for name, got, want in (("type-1", t1, u1), ("type-2", t2, u2)):
+        err = rel(got, want)
+        log(f"1d_mats {name}: planned vs unplanned {err:.3e} (gate < "
+            f"{KERNEL_RTOL:g})")
+        if not err <= KERNEL_RTOL:
+            raise RuntimeError(f"1d_mats {name} disagrees with the unplanned "
+                               f"transform")
+    density = torch.linalg.norm(pts, dim=1)
+    with no_plain_calls("1d_mats_slots"):
+        phases["1d_mats_slots"] = slots_phase(
+            "1d mats level", op.adjoint(), modes, strengths, density,
+            "1d_mats_slots")
+    budget = binning.MATS_BYTES_BUDGET
+    binning.MATS_BYTES_BUDGET = 0
+    try:
+        binned_op = tnt.PlannedNufft(pts, grid, transform_type="type_2",
+                                     fft_direction="backward", tol=TOL)
+    finally:
+        binning.MATS_BYTES_BUDGET = budget
+    if binned_op.level != "binned":
+        raise RuntimeError("the lowered budget did not give the binned "
+                           "level")
+    with no_plain_calls("1d_binned_slots"):
+        phases["1d_binned_slots"] = slots_phase(
+            "1d binned level at the mats size", binned_op, modes, strengths,
+            density, "1d_binned_slots")
+    kw, tb = op.weights, op.binned.tile_bounds
+    used = int(tb[-1]) * geom.chunk
+    coords = binning.build_coords_payload(op.binned)
+    values_pl = binning.build_values_payload(
+        strengths[0].t().contiguous(), op.binned)
+    tiles = torch.from_numpy(rng.standard_normal(
+        geom.tiles + (2,) + geom.ext).astype(np.float32)).to(dev)
+    slots = interp.interp_tiles_plain(tiles, tb, geom, op.plan,
+                                      coords=coords)
+    slots = slots.transpose(0, 1).reshape(2, -1)
+    slots = (slots / slots.abs().max()).contiguous()
+    results = {}
+    wrap = wrappers()
+    for name, kernel, plain, kind, planned in (
+            ("spread_planned_1d",
+             functools.partial(wrap["spread_planned_1d"], values_pl, tb,
+                               geom, op.plan, kw),
+             functools.partial(spread.spread_tiles_plain, values_pl, tb,
+                               geom, op.plan, kw=kw), "spread", True),
+            ("interp_planned_1d",
+             functools.partial(wrap["interp_planned_1d"], tiles, tb, geom,
+                               op.plan, kw),
+             functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
+                               op.plan, kw=kw), "interp", True),
+            ("spread_resident_1d",
+             functools.partial(wrap["spread_resident_1d"], values_pl, tb,
+                               geom, op.plan, coords),
+             functools.partial(spread.spread_tiles_plain, values_pl, tb,
+                               geom, op.plan, coords=coords), "spread",
+             False),
+            ("spread_split_resident_1d",
+             functools.partial(wrap["spread_split_resident_1d"], slots, tb,
+                               geom, op.plan, coords),
+             functools.partial(spread.spread_tiles_plain, slots, tb, geom,
+                               op.plan, coords=coords), "spread", False)):
+        hold(name, kernel, plain, results)
+        repeat(name, kernel)
+        time_pair(name, kernel, plain, results,
+                  tile_work(kind, planned, geom, op.plan, 2, m, used))
+    return phases, results
+
+
+def train_phase_1d(points, dev):
+    """Training at the 1D headline points: a type-2 loss with x [4, 2^20,
+    2] and k [10^7, 1] learnable (the source gradient spreads B2 = 8
+    channels), gated as the 3D training step (err_total on 4096-element
+    subsets given the port's residual, err_impl against the float64 plain
+    pipeline); then one batch-3 type-1 loss step (B2 = 6), gated on
+    err_impl. Launch counts per step, no plain-version call, times."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.planar import from_planar
+    grid = (GRID1,)
+    rng = np.random.default_rng(SEED + 23)
+    x0 = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH1,) + grid + (2,)).astype(np.float32)).to(dev)
+    k0 = torch.from_numpy(points).to(dev)
+    k_true = k0 + torch.from_numpy((SHIFT * rng.standard_normal(
+        points.shape)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = tnt.planar.nufft(x0, k_true, tol=TOL)
+    x = x0.clone().requires_grad_()
+    k = k0.clone().requires_grad_()
+
+    def step():
+        out = tnt.planar.nufft(x, k, tol=TOL)
+        (0.5 * (out - y).square().sum()).backward()
+        return out
+    reset_launches()
+    with no_plain_calls("train1d"):
+        out = step()
+        torch.cuda.synchronize()
+    launches = {"train1d": read_launches("train1d")}
+    log(f"train1d type-2 step launches: {step_launches()}")
+    gx, gk = x.grad.detach(), k.grad.detach()
+    if not (bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gk).all())):
+        raise RuntimeError("train1d: non-finite gradients")
+    r = from_planar(out.detach() - y).to(torch.complex128)       # [B, M]
+    sub = np.random.default_rng(SEED + 24)
+    idx_modes = torch.from_numpy(np.sort(sub.choice(
+        GRID1, SUBSET, replace=False))).to(dev)
+    idx_pts = torch.from_numpy(np.sort(sub.choice(
+        NUM_POINTS1, SUBSET, replace=False))).to(dev)
+    # x.grad of the first image at 4096 modes; k.grad at 4096 points.
+    gx_exact = exact_type1_subset(points, r[0], idx_modes, dev, sign=1.0,
+                                  grid=grid)
+    f = from_planar(x0).to(torch.complex128)
+    kw = mode_weights(grid, torch.float64, dev)[0]
+    gk_exact = sum(torch.imag(torch.conj(r[b, idx_pts]) * exact_type2_subset(
+        points, f[b] * kw, idx_pts, -1.0, dev, grid=grid))
+        for b in range(TRAIN_BATCH1))[:, None]
+    ref = impl_gates("train1d", (gx, gk), x0, k0, y, "type_2")
+    scale_x = float(from_planar(ref[0]).abs().max())
+    err_x = float((from_planar(gx)[0][idx_modes].to(torch.complex128)
+                   - gx_exact).abs().max()) / scale_x
+    err_k = rel(gk[idx_pts], gk_exact, float(ref[1].abs().max()))
+    log(f"train1d: err_total x.grad ({SUBSET} modes of image 0, given r) "
+        f"{err_x:.3e}, k.grad ({SUBSET} points, given r) {err_k:.3e} (gate "
+        f"< {10 * TOL:g})")
+    if not (err_x < 10 * TOL and err_k < 10 * TOL):
+        raise RuntimeError("train1d: err_total gates failed")
+    del ref, r, f
+    cases = {"train1d_type2_step": step}
+    timed_step("train1d_type2_step", step, reps=3)
+
+    c0 = torch.from_numpy(rng.standard_normal(
+        (TYPE1_BATCH, NUM_POINTS1, 2)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        target = tnt.planar.nufft(c0, k_true, grid_shape=grid,
+                                  transform_type="type_1", tol=TOL)
+    c = c0.clone().requires_grad_()
+    k1 = k0.clone().requires_grad_()
+
+    def step1():
+        out = tnt.planar.nufft(c, k1, grid_shape=grid,
+                               transform_type="type_1", tol=TOL)
+        (0.5 * (out - target).square().sum()).backward()
+    reset_launches()
+    with no_plain_calls("train1d_type1"):
+        step1()
+        torch.cuda.synchronize()
+    launches["train1d_type1"] = read_launches("train1d_type1")
+    log(f"train1d type-1 step launches: {step_launches()}")
+    impl_gates("train1d type-1 step", (c.grad, k1.grad), c0, k0, target,
+               "type_1")
+    timed_step("train1d_type1_step", step1, reps=3)
+    cases["train1d_type1_step"] = step1
+    return launches, cases
 
 
 def profile_phase(label, cases, calls=20):
@@ -2011,6 +2506,36 @@ def main():
         points3, GEOMETRY3["fine_shape"], dev, cpu_reference=False)
     if profile:
         profile_phase("train3d", dict(cases3, **only3))
+    del cases3, only3, points3, z3, modes3
+    torch.cuda.empty_cache()
+    # Rank 1.
+    points1, z1, modes1 = inputs1d()
+    results.update(kernel_phase_1d(points1, dev))
+    torch.cuda.empty_cache()
+    launches1, op1, adj, pts, strengths, modes_p = end_to_end_1d(
+        points1, z1, modes1, dev)
+    phases["1d"] = launches1
+    with no_plain_calls("1d_slots"):
+        phases["1d_slots"] = slots_phase(
+            "1d binned level", adj, modes_p[None], strengths[None],
+            torch.linalg.norm(pts, dim=1), "1d_slots")
+    if profile:
+        profile_phase("1d", transform_cases(
+            op1, adj, pts, strengths, modes_p, (GRID1,),
+            dict(fft_direction="backward")))
+    del op1, adj, pts, strengths, modes_p, z1, modes1
+    torch.cuda.empty_cache()
+    mats_phases, mats_results = planned_mats_phase_1d(points1, dev)
+    phases.update(mats_phases)
+    results.update(mats_results)
+    torch.cuda.empty_cache()
+    train_launches, cases1 = train_phase_1d(points1, dev)
+    phases.update(train_launches)
+    torch.cuda.empty_cache()
+    phases["spread_only_1d"], only1 = spread_only_phase(
+        points1, GEOMETRY1["fine_shape"], dev, cpu_reference=False)
+    if profile:
+        profile_phase("train1d", dict(cases1, **only1))
     for name, parent in PARENT_MS.items():
         res, phase = results[name], KERNELS[name][3]
         log(f"time {name}: row-slab kernel {res['ms']:.4f} ms, "

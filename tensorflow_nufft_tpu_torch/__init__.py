@@ -1,5 +1,5 @@
-"""PyTorch port of tensorflow_nufft_tpu (planar 2D and 3D type-1/type-2
-NUFFT).
+"""PyTorch port of tensorflow_nufft_tpu (planar 1D, 2D and 3D
+type-1/type-2 NUFFT).
 
 The spread and interp hot loops, and at 3D the mode stages around cuFFT,
 run as hand-written CUDA kernels on CUDA tensors (``csrc/``, built with

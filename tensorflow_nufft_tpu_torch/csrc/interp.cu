@@ -1,13 +1,13 @@
 // Interp (type-2 step 3) for NVIDIA Hopper: per-tile halo-padded blocks
 // [num_tiles, B2, *ext] -> slot-order values [num_chunks, B2, chunk]
-// (float32, rank 2 or 3).
+// (float32, rank 1, 2 or 3).
 //
 // Replaces four Pallas TPU kernels:
 //   tensorflow_nufft_tpu/kernels/pallas_interp.py:_interp_kernel_resident_mats
 //   and :_interp_kernel_mats (the rank-3 per-tile grid): precomputed
 //     kernel windows (tnt_interp, planned);
 //   tensorflow_nufft_tpu/kernels/pallas_interp.py:_interp_kernel
-//     (unplanned, ranks 2 and 3: in-kernel Horner or exp/sqrt on the
+//     (unplanned, ranks 1-3: in-kernel Horner or exp/sqrt on the
 //     two-float coordinates, es_window from the extended-tile origin).
 //     Its deriv_axis flag, the backward kernel of the spread-only ops, is
 //     the runtime EsKernel::deriv_axis: that axis's window holds phi'
@@ -30,10 +30,15 @@
 // chunk lies in one tile. Each thread forms its rank axis windows into
 // registers (planned: loaded; unplanned: evaluated; banded: es_window_
 // exact, axis 0 from its sub-chunk's band origin) and computes
+//     rank 1: c = sum_i F[s0 + i] * w0[i]
 //     rank 2: c = sum_i w0[i] * (sum_j w1[j] * F[s0 + i, s1 + j])
 //     rank 3: c = sum_{i,j} (w0[i] * w1[j]) * (sum_k w2[k] * F[..]),
 // the order of the TPU kernels' contractions (the last axis first, then
-// the Khatri-Rao-folded leading axes), the rows i ascending. The block
+// the Khatri-Rao-folded leading axes), the rows i ascending. At rank 1
+// (chunk_interp_values' sum(mats[0] * f), pallas_interp.py:56-57) a row
+// is one cell: the block stages the span of its slots' windows on the
+// tile's line (all 1032 cells, 4 KB, at the 1D headline) and each thread
+// reads its w cells from shared memory in window order. The block
 // stages the axis-0 rows its windows touch (the span of its slots' axis-0
 // windows; banded, the union of its sub-chunks' bands: about 24 rows for
 // 512 slots at the 3D binned headline against 16 for each 128-slot
@@ -69,10 +74,16 @@ using tnt::kMaxWidth;
 using interp_rows::InterpFn;
 using interp_rows::interp_rows_kernel;
 
-// Rank 3 staged: one kernel per width; rank 2 and the in-place reads: a
-// bound on the width.
+// Rank 3 staged: one kernel per width; ranks 1 and 2 and the in-place
+// reads: a bound on the width. A rank-1 line always stages
+// (kernels/interp.py:piece_rows).
 InterpFn interp_fn(int rank, bool staged, int width) {
   if (width < 2 || width > kMaxWidth) return nullptr;
+  if (rank == 1) {
+    if (!staged) return nullptr;
+    return width <= 8 ? interp_rows_kernel<1, 8, false, true>
+                      : interp_rows_kernel<1, kMaxWidth, false, true>;
+  }
   if (rank == 3)
     return staged ? interp_rows::rank3_fn<false>(width)
                   : interp_rows_kernel<3, kMaxWidth, false, false>;
@@ -96,7 +107,7 @@ extern "C" int tnt_interp(int planned, const void* tile_bounds,
   const tnt::Geometry g = tnt::geometry_from(ip);
   const tnt::EsKernel k = tnt::es_from(ip, fp);
   const tnt::Band bd = tnt::band_from(ip);
-  if (g.rank != 2 && g.rank != 3) return (int)cudaErrorInvalidValue;
+  if (g.rank < 1 || g.rank > 3) return (int)cudaErrorInvalidValue;
   return (int)interp_rows::launch(
       interp_fn(g.rank, bd.slab > 0, k.width), (const int*)tile_bounds,
       nullptr, (const float*)tiles, planned ? nullptr : (const float*)coords,

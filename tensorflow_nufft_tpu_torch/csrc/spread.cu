@@ -1,6 +1,6 @@
 // Spread (type-1 step 1) for NVIDIA Hopper: slot-order point values ->
-// per-tile halo-padded blocks [num_tiles, B2, *ext] (float32, rank 2 or
-// 3).
+// per-tile halo-padded blocks [num_tiles, B2, *ext] (float32, rank 1, 2
+// or 3).
 //
 // Replaces nine Pallas TPU kernels:
 //   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_resident_mats
@@ -83,6 +83,27 @@
 // 5.6e6 at 800,000 points and width 7. The row-owner design before it
 // tested every slot in every row of its tile (49 of 576 rows at 3D ext
 // (24, 24, 72) did work on a slot) at one block of 166 KB per SM.
+//
+// Rank 1 (the rank-1 branch of the same TPU kernels, chunk_contribution's
+// sum(mats[0] * s), pallas_spread.py:174-175) has its own kernel,
+// spread_line_kernel: a row of the layout above is one cell of a 1D tile,
+// so a warp per row would test every slot of the tile (about 5,100 at the
+// 1D headline, 2^20 modes and 10^7 points: ext 1032, chunk 256) for one
+// cell. Here a warp owns a run of kLineRun = 64 consecutive cells of a
+// tile's line for a channel pair, two cells a lane, summed in registers:
+// it walks the tile's slots in order, finds the slots whose window meets
+// its run with one ballot per 32 slots (about 7% of them at width 7), the
+// hitting lanes copy their windows into the warp's shared copy, and the
+// warp takes the hits in slot order, each lane adding v * w[cell - s] to
+// the cells of its own that the window covers. Blocks of bd.slab warps
+// (at most 16) cover the ceil(E0 / 64) runs of a tile, so no block holds
+// a tile and any E0 launches. One owner lane per cell, slot order, no
+// atomics: bit-repeatable, like the ranks 2 and 3. Bounded on the H100
+// by the ballot walk (each of a tile's 17 warps reads every window start
+// of the tile: 160 loads and ballots a warp at the headline) and the
+// chain of about 8 dependent operations per hit; memory traffic (the
+// windows kernel writes and the spread reads 8 words a slot) is about
+// 0.4 GB at the headline (PERF.md).
 #include "tnt_common.cuh"
 
 namespace {
@@ -414,6 +435,98 @@ __global__ void __launch_bounds__(kMaxRowThreads)
   }
 }
 
+// Cells of a tile's line a rank-1 warp owns: kLineCells a lane.
+constexpr int kLineCells = 2;
+constexpr int kLineRun = 32 * kLineCells;
+
+// Blocks of one tile's line: bd.slab warps a block, kLineRun cells a warp.
+__host__ __device__ inline int line_pieces(const Geometry& g,
+                                           const tnt::Band& bd) {
+  const int runs = (g.e[0] + kLineRun - 1) / kLineRun;
+  return (runs + bd.slab - 1) / bd.slab;
+}
+
+// The rank-1 spread (source note above): block (tile * pieces + piece,
+// channel group of one or two), bd.slab warps; warp `warp` of piece p
+// owns cells [c0, c0 + kLineRun), c0 = (p * slab + warp) * kLineRun,
+// lane l the cells c0 + l + 32 q, q < kLineCells, in registers. ws/st
+// are the slots' windows [slots][w] and starts [slots] (the planned
+// artifact or windows_kernel's). The shared memory holds each warp's
+// copy of its 32 slots' windows, [slab][32][w]. zorigins and tw are
+// unused (the signature of RowsFn).
+__global__ void __launch_bounds__(kMaxRowThreads)
+    spread_line_kernel(const int* __restrict__ tile_bounds,
+                       const int* __restrict__ zorigins,
+                       const float* __restrict__ values,
+                       const float* __restrict__ ws,
+                       const int* __restrict__ st,
+                       const float* __restrict__ tw,
+                       float* __restrict__ out, Geometry g, EsKernel k,
+                       tnt::Band bd) {
+  extern __shared__ float win[];
+  const int e0 = g.e[0];
+  const int pieces = line_pieces(g, bd);
+  const int tile = blockIdx.x / pieces;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = ((blockIdx.x % pieces) * bd.slab + warp) * kLineRun;
+  if (c0 >= e0) return;  // warp-uniform, and no block barrier follows
+  const int w = k.width;
+  const int ch = blockIdx.y * g.group;
+  const int nc = min(g.group, g.batch2 - ch);
+  const size_t slots = g.slots;
+  const float* v0 = values + (size_t)ch * slots;
+  const float* v1 = v0 + slots;
+  float* mywin = win + warp * 32 * w;
+  float acc0[kLineCells], acc1[kLineCells];
+#pragma unroll
+  for (int q = 0; q < kLineCells; ++q) acc0[q] = acc1[q] = 0.0f;
+  const int beg = tile_bounds[tile] * g.chunk;
+  const int end = tile_bounds[tile + 1] * g.chunk;
+  for (int base = beg; base < end; base += 32) {
+    const int i = base + lane;
+    // The slot's window start from the run's first cell; padded slots
+    // start far outside (binning.SENTINEL, clamped to 1e8).
+    const int d = i < end ? st[i] - c0 : kLineRun;
+    const bool hit = d < kLineRun && d + w > 0;
+    unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (m == 0u) continue;
+    float x0 = 0.0f, x1 = 0.0f;
+    __syncwarp();  // the previous group's windows are consumed
+    if (hit) {
+      x0 = v0[i];
+      x1 = nc > 1 ? v1[i] : 0.0f;
+      const float* src = ws + (size_t)i * w;
+      for (int j = 0; j < w; ++j) mywin[lane * w + j] = src[j];
+    }
+    __syncwarp();
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1u;
+      const int ds = __shfl_sync(0xffffffffu, d, src);
+      const float y0 = __shfl_sync(0xffffffffu, x0, src);
+      const float y1 = __shfl_sync(0xffffffffu, x1, src);
+#pragma unroll
+      for (int q = 0; q < kLineCells; ++q) {
+        const int t = lane + 32 * q - ds;  // the cell's window offset
+        if ((unsigned)t < (unsigned)w) {
+          const float wt = mywin[src * w + t];
+          acc0[q] = __fadd_rn(acc0[q], __fmul_rn(y0, wt));
+          acc1[q] = __fadd_rn(acc1[q], __fmul_rn(y1, wt));
+        }
+      }
+    }
+  }
+  float* dst = out + ((size_t)tile * g.batch2 + ch) * e0;
+#pragma unroll
+  for (int q = 0; q < kLineCells; ++q) {
+    const int cell = c0 + lane + 32 * q;
+    if (cell < e0) {
+      dst[cell] = acc0[q];
+      if (nc > 1) dst[e0 + cell] = acc1[q];
+    }
+  }
+}
+
 using RowsFn = void (*)(const int*, const int*, const float*, const float*,
                         const int*, const float*, float*, Geometry, EsKernel,
                         tnt::Band);
@@ -444,8 +557,8 @@ WindowsFn windows_fn(int width) {
 }
 
 // The launch parameters every spread takes: a row-slab layout with one
-// warp per slab row, channel groups of one or two, a width the kernels
-// are built for.
+// warp per slab row (rank 1: bd.slab warps of kLineRun cells, one line),
+// channel groups of one or two, a width the kernels are built for.
 bool rows_valid(const Geometry& g, const EsKernel& k, const tnt::Band& bd,
                 int threads) {
   return bd.slab >= 1 && bd.lines >= 1 && bd.lines <= g.e[1] &&
@@ -455,7 +568,8 @@ bool rows_valid(const Geometry& g, const EsKernel& k, const tnt::Band& bd,
 }
 
 // Launches the windows kernel (into ws/st) where `windows`, then the
-// spread on grid (outer * nslabs * nqs, channel groups).
+// spread on grid (outer * nslabs * nqs, channel groups); at rank 1, (outer
+// * line_pieces, channel groups).
 cudaError_t launch_rows(WindowsFn windows, RowsFn fn, int outer,
                         const int* tile_bounds, const int* zorigins,
                         const float* values, const float* coords, float* ws,
@@ -473,7 +587,8 @@ cudaError_t launch_rows(WindowsFn windows, RowsFn fn, int outer,
   }
   const int nslabs = (g.e[0] + bd.slab - 1) / bd.slab;
   const int nqs = (g.e[1] + bd.lines - 1) / bd.lines;
-  const dim3 grid(outer * nslabs * nqs, (g.batch2 + g.group - 1) / g.group);
+  const int per = g.rank == 1 ? line_pieces(g, bd) : nslabs * nqs;
+  const dim3 grid(outer * per, (g.batch2 + g.group - 1) / g.group);
   const int smem = ip[tnt::kSmem];
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -490,9 +605,10 @@ cudaError_t launch_rows(WindowsFn windows, RowsFn fn, int outer,
 // coords is the [2 * rank, slots] payload (hi words, then lo words) and
 // weights/starts are scratch of the same shapes, which a first kernel
 // fills with the slots' windows. values is [B2, slots]; out is
-// [num_tiles, B2, *ext]. Returns the first CUDA error (0 on success;
-// cudaErrorInvalidValue for a rank other than 2 or 3 or a layout the
-// kernels do not take).
+// [num_tiles, B2, *ext]. Rank 1 takes spread_line_kernel (bd.slab warps a
+// block, one line), ranks 2 and 3 spread_rows_kernel. Returns the first
+// CUDA error (0 on success; cudaErrorInvalidValue for a rank other than
+// 1, 2 or 3 or a layout the kernels do not take).
 extern "C" int tnt_spread(int planned, const void* tile_bounds,
                           const void* values, const void* coords,
                           void* weights, void* starts, void* out,
@@ -500,14 +616,16 @@ extern "C" int tnt_spread(int planned, const void* tile_bounds,
   const Geometry g = tnt::geometry_from(ip);
   const EsKernel k = tnt::es_from(ip, fp);
   const tnt::Band bd = tnt::band_from(ip);
-  if ((g.rank != 2 && g.rank != 3) || !rows_valid(g, k, bd, ip[tnt::kThreads]))
+  if (g.rank < 1 || g.rank > 3 || !rows_valid(g, k, bd, ip[tnt::kThreads]))
     return (int)cudaErrorInvalidValue;
   WindowsFn windows = nullptr;
   if (!planned)
-    windows = g.rank == 2 ? windows_fn<2, false>(k.width)
-                          : windows_fn<3, false>(k.width);
-  const RowsFn fn = g.rank == 2 ? rows_fn<2, false, false>(k.width)
-                                : rows_fn<3, false, false>(k.width);
+    windows = g.rank == 1   ? windows_fn<1, false>(k.width)
+              : g.rank == 2 ? windows_fn<2, false>(k.width)
+                            : windows_fn<3, false>(k.width);
+  const RowsFn fn = g.rank == 1   ? spread_line_kernel
+                    : g.rank == 2 ? rows_fn<2, false, false>(k.width)
+                                  : rows_fn<3, false, false>(k.width);
   return (int)launch_rows(
       windows, fn, tnt::num_tiles(g), (const int*)tile_bounds, nullptr,
       (const float*)values, (const float*)coords, (float*)weights,

@@ -18,8 +18,8 @@ mode stage above.
 The steps around the FFT dispatch as the JAX rank-3 stages do
 (``planar_fft.py:143-150``, ``:244-250``): at rank 3 a CUDA tensor goes
 to the hand-written kernels of ``kernels.mode3d``; a CPU tensor, and
-rank 2 (which the JAX package keeps in XLA), to their plain PyTorch
-versions.
+ranks 1 and 2 (which the JAX package keeps in XLA), to their plain
+PyTorch versions.
 
 Conventions, as in the JAX package: 'forward' is the exp(-i k.x) sign,
 'backward' exp(+i k.x) with no normalization; mode index i along a size-n

@@ -1,15 +1,15 @@
 """Interp: per-tile halo-padded blocks -> slot-order point values.
 
-Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_interp`` (ranks 2
-and 3). Four entry points launch the hand-written Hopper kernels of
+Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_interp`` (ranks 1,
+2 and 3). Four entry points launch the hand-written Hopper kernels of
 ``csrc/interp.cu``:
 
 - ``interp_planned_cuda`` replaces ``pallas_interp._interp_kernel_
-  resident_mats`` (rank 2) and ``_interp_kernel_mats`` (the rank-3
-  per-tile grid): precomputed per-slot windows (``KernelWeights``).
+  resident_mats`` and ``_interp_kernel_mats`` (the per-tile grid, the
+  form of rank 3 and of tile arrays the TPU cannot keep resident):
+  precomputed per-slot windows (``KernelWeights``).
 - ``interp_unplanned_cuda`` replaces ``pallas_interp._interp_kernel``
-  (ranks 2 and 3): windows evaluated in the kernel from the coords
-  payload.
+  (ranks 1-3): windows evaluated in the kernel from the coords payload.
 - ``interp_deriv_cuda`` is the same kernel with ``_interp_kernel``'s
   ``deriv_axis`` flag: the window of one axis holds the kernel's
   derivative phi' (the points gradients of the spread-only ops).
@@ -82,8 +82,8 @@ def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
             kw: Optional[KernelWeights], coords: Optional[torch.Tensor],
             deriv_axis: int = -1):
     rank = geom.rank
-    if rank not in (2, 3):
-        raise NotImplementedError("the interp kernel takes ranks 2 and 3")
+    if rank not in (1, 2, 3):
+        raise ValueError(f"the interp kernel takes ranks 1-3, got {rank}")
     batch2, slots = tiles.shape[rank], geom.num_slots
     f32, i32 = torch.float32, torch.int32
     need = functools.partial(_build.require_cuda, "interp")
@@ -243,10 +243,11 @@ def interp_tiles_plain(tiles: torch.Tensor, tile_bounds: torch.Tensor,
             wd = kw.weights[d][:, o]
             wl = wd if wl is None else wl * wd
         ok = ok[None]
-        idx = torch.where(ok, base + (row[:, None] * ext[-1] + cols)[None],
-                          0)
+        lead = 0 if wl is None else row[:, None] * ext[-1]
+        idx = torch.where(ok, base + (lead + cols)[None], 0)
         vals = torch.where(ok, flat[idx], 0.0)               # [B2, S, w]
         inner = torch.sum(vals * kw.weights[-1][None], dim=-1)
-        out = out + wl[None] * inner
+        # Rank 1 has no leading axis: the window sum is the value.
+        out = inner if wl is None else out + wl[None] * inner
     return out.reshape(batch2, geom.num_chunks, geom.chunk).transpose(
         0, 1).contiguous()

@@ -21,8 +21,9 @@ hand-written Hopper kernels of ``csrc/mode3d.cu``, one per entry point:
 The kernels take rank 3 and float32. Each has a plain PyTorch version of
 the same function (any rank, float32 or float64): ``fold_plain``,
 ``truncate_deconvolve_plain`` (both with ``axes=2`` for the two-axis
-variants), ``amplify_pad_plain`` and ``extend_plain``. ``fft.planar_fft`` uses the plain versions for CPU
-tensors and for rank 2 (which the JAX package also keeps out of Pallas),
+variants), ``amplify_pad_plain`` and ``extend_plain``. ``fft.planar_fft``
+uses the plain versions for CPU tensors and for ranks 1 and 2 (which
+the JAX package also keeps out of Pallas),
 and ``chip_smoke.py`` holds each kernel to its plain version on the card.
 Each CUDA entry point counts its launches in its ``launches`` attribute.
 What bounds the kernels (memory traffic) is in the source note of
@@ -39,10 +40,16 @@ import torch
 from tensorflow_nufft_tpu_torch.kernels import _build
 from tensorflow_nufft_tpu_torch.kernels.binning import (
     TileGeometry, extend_tiles, overlap_add)
+from tensorflow_nufft_tpu_torch.plan.plan import make_plan
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
+# The mode-stage constants are cached on their device per grid: built on
+# the host and copied in every call, the 2^20 modes of the 1D headline
+# made the planned transforms about 5x slower on an H100 (PERF.md). The
+# cached tensors are read only.
+@functools.lru_cache(maxsize=32)
 def mode_slots(n: int, nf: int, device) -> torch.Tensor:
     """Fine-grid slot (i - n//2) mod nf of each CMCL mode index i."""
     k = np.arange(n) - n // 2
@@ -52,7 +59,12 @@ def mode_slots(n: int, nf: int, device) -> torch.Tensor:
 def deconv_weights(plan, dim: int, dtype, device) -> torch.Tensor:
     """The plan's deconvolution weights of axis ``dim``, cast once to
     the working precision."""
-    w = plan.deconv_weights(dim).astype(_NP_DTYPE[dtype])
+    return _deconv_weights(plan.spec, dim, dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _deconv_weights(spec, dim: int, dtype, device) -> torch.Tensor:
+    w = make_plan(spec).deconv_weights(dim).astype(_NP_DTYPE[dtype])
     return torch.as_tensor(w, device=device)
 
 
@@ -69,8 +81,8 @@ def _separable_weights(plan, dtype, device, axes=None) -> torch.Tensor:
 
 def on_kernels(x: torch.Tensor, rank: int) -> bool:
     """Whether a mode-stage step on ``x`` runs the Hopper kernels: rank 3
-    on the card (rank 2 stays in plain torch, as the JAX package keeps
-    it in XLA)."""
+    on the card (ranks 1 and 2 stay in plain torch, as the JAX package
+    keeps them in XLA)."""
     return x.is_cuda and rank == 3
 
 

@@ -1,15 +1,17 @@
 """Spread: slot-order point values -> per-tile halo-padded blocks.
 
-Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_spread`` (ranks 2
-and 3). Four entry points launch the hand-written Hopper kernels of
+Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_spread`` (ranks 1,
+2 and 3). Four entry points launch the hand-written Hopper kernels of
 ``csrc/spread.cu``:
 
 - ``spread_planned_cuda`` replaces ``pallas_spread._spread_kernel_
-  resident_mats`` (rank 2) and ``_spread_kernel_mats`` (the rank-3
-  per-tile grid): precomputed per-slot windows (``KernelWeights``).
+  resident_mats`` and ``_spread_kernel_mats`` (the per-tile grid, the
+  form of rank 3 and of tile arrays the TPU cannot keep resident):
+  precomputed per-slot windows (``KernelWeights``).
 - ``spread_unplanned_cuda`` replaces ``pallas_spread._spread_kernel_
-  resident`` (rank 2) and ``_spread_kernel`` (rank 3): windows evaluated
-  on the card from the coords payload, once per slot by a first kernel.
+  resident`` and ``_spread_kernel`` (the per-tile grid): windows
+  evaluated on the card from the coords payload, once per slot by a
+  first kernel.
   It also replaces the wide-channel pair
   ``_spread_kernel_resident_split`` and ``_spread_kernel_split``, which
   the TPU takes once a channel group no longer fits one 8-row payload
@@ -42,7 +44,10 @@ axis-1 lines that fit) for one or two channels, one warp per row, with
 the same layout banded or not (``launch_shape``). Each warp finds the
 slots that hit its row with one ballot per 32 slots and spreads each
 hit's window across its lanes in slot order: every output cell has one
-owner and a fixed order (deterministic, no atomics).
+owner and a fixed order (deterministic, no atomics). At rank 1, where a
+row is one cell, a warp owns a run of ``LINE_RUN`` cells of a tile's
+line instead, two a lane in registers, and blocks of up to ``ROW_WARPS``
+warps cover a tile's runs.
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ ROW_WARPS = 16
 # Shared memory of a spread block at most: two blocks per SM (half its
 # 228 KB, less the 1 KB each block reserves).
 HALF_SM = 113 * 1024
+# Cells of a rank-1 tile's line one warp owns (kLineRun in csrc/spread.cu).
+LINE_RUN = 64
 
 
 def launch_shape(geom: TileGeometry, batch2: int, width: int,
@@ -76,9 +83,18 @@ def launch_shape(geom: TileGeometry, batch2: int, width: int,
     warp's copy of 32 slots' windows past axis 0 fit half an SM, else as
     many as fit, evened out over E1; and the most axis-0 rows, one warp
     each, that let two blocks share an SM, evened out over E0. Every
-    geometry fits: a line is at most E2 floats a channel."""
+    geometry fits: a line is at most E2 floats a channel.
+
+    Rank 1: ``slab`` is the warps of a block, each owning ``LINE_RUN``
+    cells of the line (at most ``ROW_WARPS``, evened out over the runs
+    of E0; blocks of a tile on the grid), ``lines`` is 1, and the shared
+    memory holds each warp's copy of 32 slots' windows."""
     rank = geom.rank
     group = 2 if fused else min(batch2, 2)
+    if rank == 1:
+        runs = -(-geom.ext[0] // LINE_RUN)
+        slab = -(-runs // -(-runs // ROW_WARPS))
+        return group, slab, 1, 32 * slab, 4 * 32 * slab * width
     e0, e1 = geom.ext[:2]
     line = geom.ext[2] if rank == 3 else 1
     win = 4 * 32 * (rank - 1) * width
@@ -97,8 +113,8 @@ def launch_shape(geom: TileGeometry, batch2: int, width: int,
 def _launch(values_pl, tile_bounds, geom: TileGeometry, plan,
             kw: Optional[KernelWeights], coords: Optional[torch.Tensor]):
     rank = geom.rank
-    if rank not in (2, 3):
-        raise NotImplementedError("the spread kernel takes ranks 2 and 3")
+    if rank not in (1, 2, 3):
+        raise ValueError(f"the spread kernel takes ranks 1-3, got {rank}")
     batch2, slots = values_pl.shape[0], geom.num_slots
     f32, i32 = torch.float32, torch.int32
     need = functools.partial(_build.require_cuda, "spread")
@@ -269,8 +285,10 @@ def spread_tiles_plain(values_pl: torch.Tensor, tile_bounds: torch.Tensor,
             row = row * ext[d] + r
             wd = kw.weights[d][:, o]
             wl = wd if wl is None else wl * wd
-        idx = base + (row[:, None] * ext[-1] + cols)[None]
-        contrib = wl[None, :, None] * vwl
+        lead = 0 if wl is None else row[:, None] * ext[-1]
+        idx = base + (lead + cols)[None]
+        # Rank 1 has no leading axis: the contribution is v * w0.
+        contrib = vwl if wl is None else wl[None, :, None] * vwl
         ok = ok[None]
         out.index_add_(0, torch.where(ok, idx, 0).reshape(-1),
                        torch.where(ok, contrib, 0.0).reshape(-1))

@@ -1,8 +1,8 @@
 """Planar-real NUFFT API: complex values as a trailing (re, im) channel.
 
-Counterpart of ``tensorflow_nufft_tpu.planar`` for ranks 2 and 3 (2D
-and 3D): ``nufft``, the standalone ``interp`` and ``spread``, the dense
-oracle ``nudft`` and the planned ``PlannedNufft``. A complex tensor
+Counterpart of ``tensorflow_nufft_tpu.planar`` for ranks 1, 2 and 3:
+``nufft``, the standalone ``interp`` and ``spread``, the dense oracle
+``nudft`` and the planned ``PlannedNufft``. A complex tensor
 ``z`` is carried as ``to_planar(z)`` = real [..., 2].
 
 The entry points run on the CUDA card unless the caller asks for the
@@ -82,10 +82,8 @@ def _check_planar_inputs(source, points, name="source"):
 
 
 def _check_rank(rank: int) -> None:
-    if rank not in (2, 3):
-        raise NotImplementedError(
-            f"only rank-2 and rank-3 transforms are ported so far, got "
-            f"rank {rank}.")
+    if rank not in (1, 2, 3):
+        raise ValueError(f"rank must be 1, 2 or 3, got {rank}.")
 
 
 def _planar_shapes(source, points, grid_shape, transform_type):
@@ -122,7 +120,7 @@ def nufft(source,
           tol: float = 1e-6,
           options: Optional[Options] = None,
           device=None) -> torch.Tensor:
-    """Planar NUFFT (rank 2 or 3).
+    """Planar NUFFT (rank 1, 2 or 3).
 
     Args:
         source: planar complex: [..., M, 2] (type-1) or
@@ -147,7 +145,7 @@ def nufft(source,
 
 def interp(source, points, tol: float = 1e-6,
            options: Optional[Options] = None, device=None) -> torch.Tensor:
-    """Planar standalone interpolation (rank 2 or 3): the fine grid
+    """Planar standalone interpolation (rank 1, 2 or 3): the fine grid
     ``source`` [..., *grid, 2] (no oversampling: even dims, larger than
     twice the kernel width, 5-smooth) read at ``points`` [..., M, rank]
     with the ES kernel of ``tol``, scaled to unit kernel integral.
@@ -158,7 +156,7 @@ def interp(source, points, tol: float = 1e-6,
 
 def spread(source, points, grid_shape, tol: float = 1e-6,
            options: Optional[Options] = None, device=None) -> torch.Tensor:
-    """Planar standalone spreading (rank 2 or 3), the transpose of
+    """Planar standalone spreading (rank 1, 2 or 3), the transpose of
     ``interp``: point values ``source`` [..., M, 2] spread onto the grid
     ``grid_shape``. Returns [..., *grid_shape, 2]."""
     return _run(spread_only_core_planar, "type_1", "forward", True, source,
@@ -212,6 +210,7 @@ def nudft(source,
     source, points = entry_tensors(source, points, device=device)
     _check_planar_inputs(source, points)
     rank = int(points.shape[-1])
+    _check_rank(rank)
     grid_shape, elem_rank, out_elem_shape = _planar_shapes(
         source, points, grid_shape, transform_type)
     sign = -1.0 if fft_direction == "forward" else 1.0
@@ -242,7 +241,7 @@ def nudft(source,
 
 
 class PlannedNufft:
-    """Planned planar NUFFT (rank 2 or 3): fixed points, repeated
+    """Planned planar NUFFT (rank 1, 2 or 3): fixed points, repeated
     applies.
 
     Precomputes everything that depends only on the points, at one of

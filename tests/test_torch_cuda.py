@@ -567,3 +567,142 @@ def test_binned_2d_slot_surface_on_cuda_matches_cpu(dev, monkeypatch):
         results.append([o.cpu() for o in outs])
     for want, got in zip(*results):
         _close(got, want)
+
+
+# Rank 1: three tiles (every halo wraps) at both Horner widths and the
+# exp/sqrt branch, clustered points, the 1D mats-size geometry (128 tiles
+# of ext 1032), and one tile of ext 20258 (no tile preference divides
+# the fine grid: 20 spread blocks and two interp pieces a tile).
+CASES_1D = [
+    ((96,), 2000, 1e-6, "auto", False),
+    ((96,), 2000, 1e-3, "auto", False),
+    ((96,), 2000, 1e-6, "direct", False),
+    ((96,), 2000, 1e-6, "auto", True),
+    ((65536,), 16384, 1e-6, "auto", False),
+    ((10125,), 5000, 1e-6, "auto", False),
+]
+
+
+@pytest.mark.parametrize("grid,m,tol,kev,clustered", CASES_1D)
+@pytest.mark.parametrize("b2", (1, 2, 8, 16))
+@pytest.mark.parametrize("source", ("planned", "unplanned"))
+def test_rank1_kernels_match_plain(dev, grid, m, tol, kev, clustered, b2,
+                                   source):
+    """The rank-1 spread and interp (and, unplanned, the phi' interp)
+    against their plain versions; a second call repeats bit for bit."""
+    plan, geom, binned, kw, coords = _layout(grid, m, tol, dev, kev=kev,
+                                             clustered=clustered)
+    rng = np.random.default_rng(b2)
+    values_pl = binning.build_values_payload(torch.from_numpy(
+        rng.standard_normal((b2, m)).astype(np.float32)).to(dev), binned)
+    tiles = torch.from_numpy(rng.standard_normal(
+        geom.tiles + (b2,) + geom.ext).astype(np.float32)).to(dev)
+    tb = binned.tile_bounds
+    weights = dict(kw=kw) if source == "planned" else dict(coords=coords)
+    if source == "planned":
+        calls = ((lambda: spread.spread_planned_cuda(values_pl, tb, geom,
+                                                     plan, kw),
+                  lambda: spread.spread_tiles_plain(values_pl, tb, geom,
+                                                    plan, **weights)),
+                 (lambda: interp.interp_planned_cuda(tiles, tb, geom, plan,
+                                                     kw),
+                  lambda: interp.interp_tiles_plain(tiles, tb, geom, plan,
+                                                    **weights)))
+    else:
+        calls = ((lambda: spread.spread_unplanned_cuda(values_pl, tb, geom,
+                                                       plan, coords),
+                  lambda: spread.spread_tiles_plain(values_pl, tb, geom,
+                                                    plan, **weights)),
+                 (lambda: interp.interp_unplanned_cuda(tiles, tb, geom,
+                                                       plan, coords),
+                  lambda: interp.interp_tiles_plain(tiles, tb, geom, plan,
+                                                    **weights)),
+                 (lambda: interp.interp_deriv_cuda(tiles, tb, geom, plan,
+                                                   coords, 0),
+                  lambda: interp.interp_tiles_plain(tiles, tb, geom, plan,
+                                                    deriv_axis=0,
+                                                    **weights)))
+    for kernel, plain in calls:
+        got = kernel()
+        _close(got, plain())
+        assert torch.equal(kernel(), got)
+
+
+@pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
+@pytest.mark.parametrize("level", ("mats", "binned"))
+def test_rank1_nufft_and_plan_on_cuda_match_cpu(dev, monkeypatch,
+                                                transform_type, level):
+    """planar.nufft, PlannedNufft (at the "mats" and, budget lowered, the
+    "binned" level) and its slot surface at rank 1 on the card against
+    the same calls on the CPU; the card runs the rank-1 kernels."""
+    if level == "binned":
+        monkeypatch.setattr(binning, "MATS_BYTES_BUDGET", 0)
+    grid, m = (96,), 3000
+    rng = np.random.default_rng(11)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, 1)).astype(
+        np.float32))
+    shape = (2, m, 2) if transform_type == "type_1" else (2,) + grid + (2,)
+    src = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2,) + grid + (2,)).astype(
+        np.float32))
+    c = torch.from_numpy(rng.standard_normal((2, m, 2)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, m).astype(np.float32))
+    kw = dict(grid_shape=grid if transform_type == "type_1" else None,
+              transform_type=transform_type, fft_direction="backward")
+    counters = (spread.spread_planned_cuda, spread.spread_unplanned_cuda,
+                interp.interp_planned_cuda, interp.interp_unplanned_cuda)
+    results = []
+    for d in ("cpu", dev):
+        before = [k.launches for k in counters]
+        op = tnt.PlannedNufft(pts, grid, transform_type=transform_type,
+                              fft_direction="backward", device=d)
+        assert op.level == level
+        t2 = op if transform_type == "type_2" else op.adjoint()
+        outs = (tnt.planar.nufft(src.to(d), pts.to(d), **kw), op(src.to(d)),
+                t2.normal(x.to(d), t2.slot_weights(w.to(d))),
+                t2.apply_to_slots(x.to(d)),
+                t2.adjoint().apply_from_slots(t2.to_slots(c.to(d))))
+        launched = [k.launches - b for k, b in zip(counters, before)]
+        if d == dev:
+            # One kernel for nufft, op and each slot apply, two for
+            # normal: the planned ones at "mats", else all unplanned.
+            assert sum(launched) == 6
+            assert launched[0] + launched[2] == (5 if level == "mats"
+                                                 else 0)
+        else:
+            assert launched == [0, 0, 0, 0]
+        results.append([o.cpu() for o in outs])
+    for want, got in zip(*results):
+        _close(got, want)
+
+
+def test_rank1_grads_and_spread_only_on_cuda_match_cpu(dev):
+    """Source and points gradients of planar.nufft (type-2, batch 4: the
+    spread of the source gradient at B2 = 8) and of the spread-only ops
+    (the phi' interp) on the card against the CPU."""
+    grid, m = (96,), 3000
+    rng = np.random.default_rng(12)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, 1)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((4,) + grid + (2,)).astype(
+        np.float32))
+    vals = torch.from_numpy(rng.standard_normal((2, m, 2)).astype(
+        np.float32))
+    results = []
+    for d in ("cpu", dev):
+        s = x.to(d, copy=True).requires_grad_()
+        p = pts.to(d, copy=True).requires_grad_()
+        out = tnt.planar.nufft(s, p)
+        out.square().sum().backward()
+        v = vals.to(d, copy=True).requires_grad_()
+        q = pts.to(d, copy=True).requires_grad_()
+        before = interp.interp_deriv_cuda.launches
+        fine = tnt.planar.spread(v, q, (192,))
+        back = tnt.planar.interp(fine, q)
+        back.square().sum().backward()
+        assert interp.interp_deriv_cuda.launches - before == (
+            2 if d == dev else 0)
+        results.append([t.detach().cpu() for t in (
+            out, s.grad, p.grad, fine, back, v.grad, q.grad)])
+    for want, got in zip(*results):
+        _close(got, want)

@@ -51,3 +51,32 @@ def test_launch_plans_take_every_geometry(rank, n, tol, b2):
     assert threads % 32 == 0 and threads - slots < 32
     assert 0 <= slab <= e0 and smem <= _build.SMEM_LIMIT
     assert smem == 2 * slab * 4 * int(np.prod(geom.ext[1:]))
+
+
+# Rank 1: small fine grids (one tile, and ext 258 where no preference
+# divides 250), the mats-size and headline grids (ext 1032), and one
+# wide tile (ext 20258).
+SIZES_1D = (128, 250, 20_250, 131_072, 2_097_152)
+
+
+@pytest.mark.parametrize("b2", (1, 2, 8, 16))
+@pytest.mark.parametrize("width", (2, 7, 12, 16))
+@pytest.mark.parametrize("nf", SIZES_1D)
+def test_rank1_launch_plans_take_every_geometry(nf, width, b2):
+    geom = binning.choose_geometry((nf,), width, 10_000_000)
+    e0 = geom.ext[0]
+    group, slab, lines, threads, smem = spread.launch_shape(geom, b2, width)
+    assert group == min(b2, 2) and lines == 1
+    assert 1 <= slab <= spread.ROW_WARPS and threads == 32 * slab
+    # The blocks of a tile cover its line in runs of LINE_RUN cells, one
+    # warp each, with fewer than one block's warps to spare.
+    runs = -(-e0 // spread.LINE_RUN)
+    blocks = -(-runs // slab)
+    assert blocks * slab >= runs and (blocks - 1) * slab < runs
+    assert blocks * slab - runs < blocks
+    assert smem == 4 * 32 * slab * width <= _build.SMEM_LIMIT
+
+    slab, slots, threads, smem = interp.launch_shape(geom)
+    assert geom.chunk % slots == 0 and slots <= threads <= 1024
+    assert threads % 32 == 0 and threads - slots < 32
+    assert 1 <= slab <= e0 and smem == 2 * slab * 4 <= _build.SMEM_LIMIT

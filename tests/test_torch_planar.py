@@ -206,9 +206,9 @@ def test_errors():
     with pytest.raises(ValueError, match="plan data"):
         tnt.PlannedNufft(pts.clone().requires_grad_(), (16, 16))
     op = tnt.PlannedNufft(pts, (16, 16), transform_type="type_1")
-    with pytest.raises(NotImplementedError, match="rank"):
-        tnt.planar.nufft(torch.zeros(10, 2), torch.zeros(10, 1),
-                         grid_shape=(16,), transform_type="type_1")
+    with pytest.raises(ValueError, match="rank must be 1, 2 or 3"):
+        tnt.planar.nufft(torch.zeros(10, 2), torch.zeros(10, 4),
+                         grid_shape=(16,) * 4, transform_type="type_1")
     with pytest.raises(ValueError, match="grid_shape must be provided"):
         tnt.planar.nufft(src, pts, transform_type="type_1")
     with pytest.raises(ValueError, match="Invalid fft_direction"):
