@@ -119,7 +119,8 @@ Phases:
 18. 1D kernels at the 1D headline geometry (B2 = 2): the rank-1 spread
    (from point-order and from slot-order values), interp and phi'
    interp against their plain versions (1e-5 of the peak), each
-   repeated bit for bit, timed with their bounds.
+   repeated bit for bit, timed with their bounds; the spread and interp
+   also at B2 = 8 (the type-2 training step's channels).
 19. 1D end to end at the headline: PlannedNufft type-1 (binned level)
    and its adjoint, planar.nufft type-1 and type-2, with launch counts
    and no call of a plain version on the card path; gates err_total
@@ -148,9 +149,10 @@ CUDA-event median, the device busy time per call from torch.profiler
 1 - busy / event time, and the largest device items.
 
 Before the JSON, each rewritten spread and interp kernel's time is
-printed beside the block-per-tile kernel's that PERF.md records, its
-bound and its launches. Prints the kernels as one JSON line, then the
-nvidia-smi line, then, last,
+printed beside the block-per-tile kernel's that PERF.md records, and
+each rank-1 kernel's beside that of the two-kernel rank-1 design it
+replaced, with its bound and its launches. Prints the kernels as one
+JSON line, then the nvidia-smi line, then, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 
 Usage: python3 chip_smoke.py [--profile]
@@ -430,6 +432,12 @@ KERNELS = {
     "spread_split_resident_1d": ("spread.spread_unplanned_cuda",
                                  "spread.cu", f"{_PS}:898",
                                  "1d_binned_slots"),
+    # B2 = 8 at the 1D headline: the type-2 training step's forward and
+    # points-gradient interps (batch 4) and its source gradient's spread.
+    "spread_unplanned_1d_b8": ("spread.spread_unplanned_cuda", "spread.cu",
+                               f"{_PS}:638", "train1d"),
+    "interp_unplanned_1d_b8": ("interp.interp_unplanned_cuda", "interp.cu",
+                               f"{_PI}:218", "train1d"),
 }
 # Wrapper times of the block-per-tile spread and interp kernels that the
 # row-slab kernels replaced, at the same shapes, as PERF.md section 6
@@ -442,6 +450,19 @@ PARENT_MS = {
     "interp_planned": 0.1292, "interp_unplanned": 0.1372,
     "interp3d_unplanned": 2.6644, "interp_deriv": 0.1386,
     "interp3d_deriv": 2.6061, "interp3d_planned_mats": 1.5040,
+}
+# Wrapper times of the rank-1 kernels the current ones replaced (a
+# windows kernel writing every slot's window, then a spread walking the
+# tile's starts in device memory; an interp block per channel), as
+# PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's; None where that design was not timed at the shape.
+# tools/torch_line_probe.py times two trees in turns in one call.
+TWO_KERNEL_MS = {
+    "spread_unplanned_1d": 1.7003, "spread_split_1d": 1.7168,
+    "interp_unplanned_1d": 1.4174, "interp_deriv_1d": 0.8510,
+    "spread_planned_1d": 0.0632, "interp_planned_1d": 0.0721,
+    "spread_resident_1d": 0.1147, "spread_split_resident_1d": 0.1001,
+    "spread_unplanned_1d_b8": None, "interp_unplanned_1d_b8": None,
 }
 # Kernels each main-path phase must launch (one entry per wrapper).
 PHASE_KERNELS = {
@@ -477,7 +498,8 @@ PHASE_KERNELS = {
                 "spread_resident_1d"),
     "1d_mats_slots": ("spread_planned_1d", "interp_planned_1d"),
     "1d_binned_slots": ("spread_split_resident_1d", "interp_unplanned_1d"),
-    "train1d": ("spread_unplanned_1d", "interp_unplanned_1d"),
+    "train1d": ("spread_unplanned_1d", "interp_unplanned_1d",
+                "spread_unplanned_1d_b8", "interp_unplanned_1d_b8"),
     "train1d_type1": ("spread_unplanned_1d", "interp_unplanned_1d"),
     "spread_only_1d": ("spread_unplanned_1d", "interp_unplanned_1d",
                        "interp_deriv_1d"),
@@ -933,8 +955,8 @@ def large_kernels(rank, pts, plan, dev, results):
         f"geometry {got} chunk {geom.chunk} chunks {geom.num_chunks} (used "
         f"{int(binned.tile_bounds[-1])}); spread launch "
         f"{spread.launch_shape(geom, 2, plan.width)} (group, slab, lines, "
-        f"threads, smem); interp launch {interp.launch_shape(geom)} (slab, "
-        f"slots, threads, smem)")
+        f"threads, smem); interp launch {interp.launch_shape(geom, 2)} "
+        f"(group, slab, slots, threads, smem)")
     if got != LARGE_GEOMETRY[rank]:
         raise RuntimeError(f"large {rank}D geometry {got}")
     coords = binning.build_coords_payload(binned)
@@ -2058,7 +2080,8 @@ def kernel_phase_1d(points, dev):
     """The rank-1 spread, interp and phi' interp at the 1D headline
     geometry (B2 = 2) against their plain versions, repeated bit for
     bit, and timed; the spread also from slot-order values (row 6: the
-    binned plan's normal and apply_from_slots)."""
+    binned plan's normal and apply_from_slots); the spread and interp
+    at B2 = 8 (the type-2 training step's)."""
     import torch
     from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
     from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
@@ -2072,8 +2095,10 @@ def kernel_phase_1d(points, dev):
     log(f"1D plan: width {plan.width} fine {plan.fine_shape}; geometry "
         f"{got_geom}; used chunks {int(tb[-1])}; spread launch "
         f"{spread.launch_shape(geom, 2, plan.width)} (group, warps, lines, "
-        f"threads, smem); interp launch {interp.launch_shape(geom)} (slab, "
-        f"slots, threads, smem)")
+        f"threads, smem), at B2 = 8 "
+        f"{spread.launch_shape(geom, 8, plan.width)}; interp launch "
+        f"{interp.launch_shape(geom, 2)} (group, slab, slots, threads, "
+        f"smem), at B2 = 8 {interp.launch_shape(geom, 8)}")
     if got_geom != GEOMETRY1:
         raise RuntimeError(f"1D geometry {got_geom} != {GEOMETRY1}")
     coords = binning.build_coords_payload(binned)
@@ -2082,6 +2107,10 @@ def kernel_phase_1d(points, dev):
         torch.randn((2, NUM_POINTS1), generator=gen, device=dev), binned)
     tiles = torch.randn(geom.tiles + (2,) + geom.ext, generator=gen,
                         device=dev)
+    values8 = binning.build_values_payload(
+        torch.randn((8, NUM_POINTS1), generator=gen, device=dev), binned)
+    tiles8 = torch.randn(geom.tiles + (8,) + geom.ext, generator=gen,
+                         device=dev)
     # Slot-order values as the binned plan's normal feeds them: the
     # chunk-order interp of tiles (zero in padded and unused slots).
     slots = interp.interp_tiles_plain(tiles, tb, geom, plan, coords=coords)
@@ -2109,13 +2138,24 @@ def kernel_phase_1d(points, dev):
                               plan, coords, 0),
             functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
                               plan, coords=coords, deriv_axis=0), "interp"),
+        "spread_unplanned_1d_b8": (
+            functools.partial(wrap["spread_unplanned_1d_b8"], values8, tb,
+                              geom, plan, coords),
+            functools.partial(spread.spread_tiles_plain, values8, tb, geom,
+                              plan, coords=coords), "spread"),
+        "interp_unplanned_1d_b8": (
+            functools.partial(wrap["interp_unplanned_1d_b8"], tiles8, tb,
+                              geom, plan, coords),
+            functools.partial(interp.interp_tiles_plain, tiles8, tb, geom,
+                              plan, coords=coords), "interp"),
     }
     results = {}
     for name, (kernel, plain, kind) in cases.items():
+        b2 = 8 if name.endswith("_b8") else 2
         hold(name, kernel, plain, results)
         repeat(name, kernel)
         time_pair(name, kernel, plain, results,
-                  tile_work(kind, False, geom, plan, 2, NUM_POINTS1, used))
+                  tile_work(kind, False, geom, plan, b2, NUM_POINTS1, used))
     return results
 
 
@@ -2541,6 +2581,13 @@ def main():
         log(f"time {name}: row-slab kernel {res['ms']:.4f} ms, "
             f"block-per-tile kernel {parent:.4f} ms (PERF.md), "
             f"bound {res['bound_ms']:.4f} ms, launches "
+            f"{phases[phase][name]} in {phase}")
+    for name, before in TWO_KERNEL_MS.items():
+        res, phase = results[name], KERNELS[name][3]
+        log(f"time {name}: this kernel {res['ms']:.4f} ms, two-kernel "
+            f"design " + ("not measured" if before is None else
+                          f"{before:.4f} ms (PERF.md)")
+            + f", bound {res['bound_ms']:.4f} ms, launches "
             f"{phases[phase][name]} in {phase}")
     kernels = []
     for name, (_, source, replaces, phase) in KERNELS.items():

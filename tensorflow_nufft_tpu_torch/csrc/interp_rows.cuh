@@ -1,7 +1,7 @@
-// The interp kernel of csrc/interp.cu (its source note has the design)
-// and its launch, shared by the two sources that instantiate it:
-// interp.cu (ranks 1-3) and interp_banded.cu (the rank-3 binned
-// level), compiled in parallel.
+// The rank-2 and rank-3 interp kernel of csrc/interp.cu (its source
+// note has the design) and its launch, shared by the two sources that
+// instantiate it: interp.cu (ranks 2 and 3) and interp_banded.cu (the
+// rank-3 binned level), compiled in parallel.
 #pragma once
 
 #include <utility>
@@ -9,10 +9,6 @@
 #include "tnt_common.cuh"
 
 namespace interp_rows {
-
-using tnt::EsKernel;
-using tnt::Geometry;
-
 
 using tnt::EsKernel;
 using tnt::Geometry;
@@ -51,8 +47,7 @@ __device__ __forceinline__ void wait_async() {
 // chunk, channel); thread t takes slot t of the piece (threads past it
 // only help stage). out is [num_chunks, B2, chunk]. kStaged: shared
 // memory holds two pieces of bd.slab axis-0 rows of the tile ([E1][E2]
-// planes at rank 3, [E1] lines at rank 2, cells at rank 1), filled in
-// turn by cp.async;
+// planes at rank 3, [E1] lines at rank 2), filled in turn by cp.async;
 // else the block reads the tile array in place (a plane too large for
 // two rows to fit a block). kBanded (rank 3, staged): the binned level,
 // axis-0 windows counted from each sub-chunk's band origin, rows outside
@@ -121,7 +116,7 @@ __global__ void __launch_bounds__(kMaxSlotThreads, 2)
   // Row i of the slot's window, from rows [p0, p0 + nrows) of the tile
   // at fb, where it lies there and in the band: rank 3 adds (w0[i]
   // w1[j]) (sum_x w2[x] F[.., s1 + j, s2 + x]) for each j, rank 2 w0[i]
-  // (sum_j w1[j] F[.., s1 + j]), rank 1 F[s0 + i] w0[i].
+  // (sum_j w1[j] F[.., s1 + j]).
   float acc = 0.0f;
   auto row = [&](const float* fb, int p0, int nrows, int i) {
     const int q = s[0] + i;     // the row in the band's coordinates
@@ -143,8 +138,6 @@ __global__ void __launch_bounds__(kMaxSlotThreads, 2)
         }
         acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(w0[i], w1[j]), inner));
       }
-    } else if constexpr (kRank == 1) {
-      acc = __fadd_rn(acc, __fmul_rn(fb[r], w0[i]));
     } else {
       const float* frow = fb + r * e1;
       float inner = 0.0f;

@@ -9,10 +9,11 @@
 //     planned);
 //   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_resident
 //   and :_spread_kernel (the rank-3 per-tile grid with its sub-chunk
-//     fold): Horner or exp/sqrt on the two-float coordinates; here a
-//     first kernel evaluates each slot's windows once (windows_kernel,
-//     es_window from the extended-tile origin, the arithmetic of the
-//     plain version and the TPU kernels), then the same spread;
+//     fold): Horner or exp/sqrt on the two-float coordinates; here, at
+//     ranks 2 and 3, a first kernel evaluates each slot's windows once
+//     (windows_kernel, es_window from the extended-tile origin, the
+//     arithmetic of the plain version and the TPU kernels), then the
+//     same spread; at rank 1 the spread's own block evaluates them;
 //   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_resident_split
 //   and :_spread_kernel_split: the same with separate coords and values
 //     payloads, which the TPU takes for channel groups wider than one
@@ -86,24 +87,39 @@
 //
 // Rank 1 (the rank-1 branch of the same TPU kernels, chunk_contribution's
 // sum(mats[0] * s), pallas_spread.py:174-175) has its own kernel,
-// spread_line_kernel: a row of the layout above is one cell of a 1D tile,
-// so a warp per row would test every slot of the tile (about 5,100 at the
-// 1D headline, 2^20 modes and 10^7 points: ext 1032, chunk 256) for one
-// cell. Here a warp owns a run of kLineRun = 64 consecutive cells of a
-// tile's line for a channel pair, two cells a lane, summed in registers:
-// it walks the tile's slots in order, finds the slots whose window meets
-// its run with one ballot per 32 slots (about 7% of them at width 7), the
-// hitting lanes copy their windows into the warp's shared copy, and the
-// warp takes the hits in slot order, each lane adding v * w[cell - s] to
-// the cells of its own that the window covers. Blocks of bd.slab warps
-// (at most 16) cover the ceil(E0 / 64) runs of a tile, so no block holds
-// a tile and any E0 launches. One owner lane per cell, slot order, no
-// atomics: bit-repeatable, like the ranks 2 and 3. Bounded on the H100
-// by the ballot walk (each of a tile's 17 warps reads every window start
-// of the tile: 160 loads and ballots a warp at the headline) and the
-// chain of about 8 dependent operations per hit; memory traffic (the
-// windows kernel writes and the spread reads 8 words a slot) is about
-// 0.4 GB at the headline (PERF.md).
+// spread_line_kernel: a row of the layout above is one cell of a 1D tile.
+// A warp owns a run of kLineRun = 64 consecutive cells of a tile's line,
+// two a lane, for up to kMaxLineChannels = 8 channels, all summed in
+// registers; a block of up to 32 warps owns a piece of the line (all of a
+// tile of ext up to 2048: the 1D headline's 1032 cells take one block of
+// 17 warps), for every channel of its group. The block takes the tile's
+// slots in slot order, in batches of one slot a thread, into shared
+// memory: each slot's start, and, where its window meets the piece, its
+// w weights (loaded from the planned artifact, or evaluated from the
+// coords by es_window, the arithmetic of the windows kernel it replaced)
+// and its values. Nothing of the windows goes to device memory. Each
+// warp then finds the batch's slots whose window meets its run, one
+// ballot over 32 starts in shared memory (a slot meets at most two runs:
+// w <= 16 < 64), and adds each hit to its cells in slot order, v * w[cell
+// - s] with __fmul_rn/__fadd_rn, every channel from the one copy of the
+// window. Two batch buffers take one block barrier a batch. One owner
+// lane per cell, slot order, no atomics: bit-repeatable, and equal bit
+// for bit to the two-kernel design it replaced (windows_kernel<1> wrote
+// every slot's window, 32 B a slot, 0.34 GB at the headline, and each of
+// a tile's 17 warps walked every slot's start in device memory, its
+// channel pairs on grid.y). Wider channel counts take groups of eight on
+// grid.y. What bounds it on the H100: not bytes (the coords or windows,
+// the values and the tile array are each read or written once: 0.18 GB
+// at the headline, B2 = 2) but the instructions a hit takes in its warp,
+// about 45 at B2 = 2 in the SASS (the lanes' window tests, a shuffle,
+// the shared loads of the values and weights, the products), with few
+// lanes at work (about 7 of 64 cells a hit), then the ballot walk and
+// the window evaluation (n_horner steps a cell). A branch-free hit (every
+// lane loading and selecting) and uniform branches on the run's halves
+// were both slower on the card (PERF.md). A block-wide scan into per-run
+// lists was the alternative to the ballot walk: it costs the same
+// ballots (one per run and 32 slots) plus a cross-warp prefix and a
+// barrier, so the walk stays.
 #include "tnt_common.cuh"
 
 namespace {
@@ -438,6 +454,12 @@ __global__ void __launch_bounds__(kMaxRowThreads)
 // Cells of a tile's line a rank-1 warp owns: kLineCells a lane.
 constexpr int kLineCells = 2;
 constexpr int kLineRun = 32 * kLineCells;
+// Threads of a rank-1 spread block at most: 32 warps, a 2048-cell piece
+// of a line (every tile of ext up to 2048 in one block), one slot each
+// in a batch.
+constexpr int kMaxLineThreads = 1024;
+// Channels a rank-1 block serves from one evaluation of its windows.
+constexpr int kMaxLineChannels = 8;
 
 // Blocks of one tile's line: bd.slab warps a block, kLineRun cells a warp.
 __host__ __device__ inline int line_pieces(const Geometry& g,
@@ -446,85 +468,183 @@ __host__ __device__ inline int line_pieces(const Geometry& g,
   return (runs + bd.slab - 1) / bd.slab;
 }
 
+// Shared memory of a rank-1 block: two batches of blockDim.x slots, each
+// slot's values (kChan floats), window start and w weights.
+__host__ __device__ inline int line_smem(int threads, int chan, int width) {
+  return 2 * threads * (chan + 1 + width) * 4;
+}
+
+// kChan channel values of one slot from shared memory, 16 or 8 bytes at a
+// time (p is aligned to kChan floats).
+template <int kChan>
+__device__ __forceinline__ void load_channels(const float* p, float* v) {
+  if constexpr (kChan % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < kChan; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + c);
+      v[c] = x.x; v[c + 1] = x.y; v[c + 2] = x.z; v[c + 3] = x.w;
+    }
+  } else if constexpr (kChan == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
 // The rank-1 spread (source note above): block (tile * pieces + piece,
-// channel group of one or two), bd.slab warps; warp `warp` of piece p
-// owns cells [c0, c0 + kLineRun), c0 = (p * slab + warp) * kLineRun,
-// lane l the cells c0 + l + 32 q, q < kLineCells, in registers. ws/st
-// are the slots' windows [slots][w] and starts [slots] (the planned
-// artifact or windows_kernel's). The shared memory holds each warp's
-// copy of its 32 slots' windows, [slab][32][w]. zorigins and tw are
-// unused (the signature of RowsFn).
-__global__ void __launch_bounds__(kMaxRowThreads)
+// channel group of up to kChan), bd.slab warps; warp `warp` owns cells
+// [c0, c0 + kLineRun), c0 = (piece * slab + warp) * kLineRun, lane l the
+// cells c0 + l + 32 q, q < kLineCells, for every channel of the group,
+// in registers. The block takes the tile's slots in batches of
+// blockDim.x, one a thread, into shared memory (two buffers, so one
+// barrier a batch): each slot's window start, and, where the window
+// meets the piece, its weights (ws, the planned artifact [slots][w], or
+// es_window<kW> from coords, the arithmetic of the plain version) and
+// its values. Each warp then finds the batch's slots whose window meets
+// its run, one ballot over 32 shared starts, and adds them in slot
+// order. Unplanned, coords is [2, slots] and ws/st are null.
+template <int kW, int kChan>
+__global__ void __launch_bounds__(kMaxLineThreads)
     spread_line_kernel(const int* __restrict__ tile_bounds,
-                       const int* __restrict__ zorigins,
                        const float* __restrict__ values,
+                       const float* __restrict__ coords,
                        const float* __restrict__ ws,
-                       const int* __restrict__ st,
-                       const float* __restrict__ tw,
-                       float* __restrict__ out, Geometry g, EsKernel k,
-                       tnt::Band bd) {
-  extern __shared__ float win[];
+                       const int* __restrict__ st, float* __restrict__ out,
+                       Geometry g, EsKernel k, tnt::Band bd) {
+  extern __shared__ float4 line4[];
+  const int nb = blockDim.x;  // slots a batch
+  const int w = k.width;
+  float* sv = reinterpret_cast<float*>(line4);          // [2][nb][kChan]
+  int* sst = reinterpret_cast<int*>(sv + 2 * nb * kChan);  // [2][nb]
+  float* sw = reinterpret_cast<float*>(sst + 2 * nb);   // [2][nb][w]
   const int e0 = g.e[0];
   const int pieces = line_pieces(g, bd);
   const int tile = blockIdx.x / pieces;
+  const int p0 = (blockIdx.x % pieces) * bd.slab * kLineRun;
+  const int pend = p0 + bd.slab * kLineRun;  // past the piece's cells
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = ((blockIdx.x % pieces) * bd.slab + warp) * kLineRun;
-  if (c0 >= e0) return;  // warp-uniform, and no block barrier follows
-  const int w = k.width;
+  const int c0 = p0 + warp * kLineRun;
+  const bool owns = c0 < e0;  // warp-uniform
   const int ch = blockIdx.y * g.group;
   const int nc = min(g.group, g.batch2 - ch);
   const size_t slots = g.slots;
-  const float* v0 = values + (size_t)ch * slots;
-  const float* v1 = v0 + slots;
-  float* mywin = win + warp * 32 * w;
-  float acc0[kLineCells], acc1[kLineCells];
+  float origin;
+  tnt::tile_origins<1>(g, tile, &origin);
+  float acc[kLineCells][kChan];
 #pragma unroll
-  for (int q = 0; q < kLineCells; ++q) acc0[q] = acc1[q] = 0.0f;
+  for (int q = 0; q < kLineCells; ++q)
+#pragma unroll
+    for (int c = 0; c < kChan; ++c) acc[q][c] = 0.0f;
   const int beg = tile_bounds[tile] * g.chunk;
   const int end = tile_bounds[tile + 1] * g.chunk;
-  for (int base = beg; base < end; base += 32) {
-    const int i = base + lane;
-    // The slot's window start from the run's first cell; padded slots
-    // start far outside (binning.SENTINEL, clamped to 1e8).
-    const int d = i < end ? st[i] - c0 : kLineRun;
-    const bool hit = d < kLineRun && d + w > 0;
-    unsigned m = __ballot_sync(0xffffffffu, hit);
-    if (m == 0u) continue;
-    float x0 = 0.0f, x1 = 0.0f;
-    __syncwarp();  // the previous group's windows are consumed
-    if (hit) {
-      x0 = v0[i];
-      x1 = nc > 1 ? v1[i] : 0.0f;
-      const float* src = ws + (size_t)i * w;
-      for (int j = 0; j < w; ++j) mywin[lane * w + j] = src[j];
-    }
-    __syncwarp();
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1u;
-      const int ds = __shfl_sync(0xffffffffu, d, src);
-      const float y0 = __shfl_sync(0xffffffffu, x0, src);
-      const float y1 = __shfl_sync(0xffffffffu, x1, src);
+  int buf = 0;
+  for (int base = beg; base < end; base += nb, buf ^= 1) {
+    const int n = min(nb, end - base);
+    float* bv = sv + buf * nb * kChan;
+    int* bs = sst + buf * nb;
+    float* bw = sw + buf * nb * w;
+    // The batch into shared memory. The buffer was last read two batches
+    // ago, before the previous barrier.
+    if (ws != nullptr)
+      for (int x = threadIdx.x; x < n * w; x += nb)
+        bw[x] = ws[(size_t)base * w + x];
+    const int e = threadIdx.x, i = base + e;
+    if (e < n) {
+      // Padded slots start far outside the tile (binning.SENTINEL).
+      const int s0 =
+          ws != nullptr ? st[i] : tnt::es_start(coords[i], origin, k);
+      bs[e] = s0;
+      if (s0 < pend && s0 + w > p0) {
+        if (ws == nullptr)
+          tnt::es_window<kW>(coords[i], coords[slots + i], origin, k,
+                             bw + e * w);
 #pragma unroll
-      for (int q = 0; q < kLineCells; ++q) {
-        const int t = lane + 32 * q - ds;  // the cell's window offset
-        if ((unsigned)t < (unsigned)w) {
-          const float wt = mywin[src * w + t];
-          acc0[q] = __fadd_rn(acc0[q], __fmul_rn(y0, wt));
-          acc1[q] = __fadd_rn(acc1[q], __fmul_rn(y1, wt));
+        for (int c = 0; c < kChan; ++c)
+          if (c < nc) bv[e * kChan + c] = values[(ch + c) * slots + i];
+      }
+    }
+    __syncthreads();
+    if (!owns) continue;
+    for (int g0 = 0; g0 < n; g0 += 32) {
+      const int j = g0 + lane;
+      // The slot's window start from the run's first cell.
+      const int d = j < n ? bs[j] - c0 : kLineRun;
+      unsigned m = __ballot_sync(0xffffffffu, d < kLineRun && d + w > 0);
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1u;
+        const int ds = __shfl_sync(0xffffffffu, d, src);
+        const int hit = g0 + src;
+        float v[kChan];
+        load_channels<kChan>(bv + hit * kChan, v);
+        const float* wh = bw + hit * w;
+#pragma unroll
+        for (int q = 0; q < kLineCells; ++q) {
+          const int t = lane + 32 * q - ds;  // the cell's window offset
+          if ((unsigned)t < (unsigned)w) {
+            const float wt = wh[t];
+#pragma unroll
+            for (int c = 0; c < kChan; ++c)
+              if (c < nc) acc[q][c] = __fadd_rn(acc[q][c], __fmul_rn(v[c], wt));
+          }
         }
       }
     }
   }
+  if (!owns) return;
   float* dst = out + ((size_t)tile * g.batch2 + ch) * e0;
 #pragma unroll
   for (int q = 0; q < kLineCells; ++q) {
     const int cell = c0 + lane + 32 * q;
     if (cell < e0) {
-      dst[cell] = acc0[q];
-      if (nc > 1) dst[e0 + cell] = acc1[q];
+#pragma unroll
+      for (int c = 0; c < kChan; ++c)
+        if (c < nc) dst[(size_t)c * e0 + cell] = acc[q][c];
     }
   }
+}
+
+using LineFn = void (*)(const int*, const float*, const float*, const float*,
+                        const int*, float*, Geometry, EsKernel, tnt::Band);
+
+template <int kW>
+LineFn line_fn_chan(int chan) {
+  return chan == 1   ? spread_line_kernel<kW, 1>
+         : chan == 2 ? spread_line_kernel<kW, 2>
+         : chan == 4 ? spread_line_kernel<kW, 4>
+                     : spread_line_kernel<kW, 8>;
+}
+
+// The channels a rank-1 block holds (kernels/spread.py:line_channels):
+// the group rounded up to a power of two.
+inline int line_channels(int group) {
+  return group <= 1 ? 1 : group <= 2 ? 2 : group <= 4 ? 4 : 8;
+}
+
+// Launches the rank-1 spread on grid (tiles * line_pieces, channel
+// groups) after checking the layout it takes; returns the CUDA error.
+cudaError_t launch_line(const int* tile_bounds, const float* values,
+                        const float* coords, const float* ws, const int* st,
+                        float* out, const Geometry& g, const EsKernel& k,
+                        const tnt::Band& bd, const int* ip, cudaStream_t s) {
+  const int threads = ip[tnt::kThreads], smem = ip[tnt::kSmem];
+  const int chan = line_channels(g.group);
+  if (bd.slab < 1 || threads != 32 * bd.slab || threads > kMaxLineThreads ||
+      k.width < 1 || k.width > tnt::kMaxWidth || g.group < 1 ||
+      g.group > kMaxLineChannels ||
+      smem != line_smem(threads, chan, k.width))
+    return cudaErrorInvalidValue;
+  const LineFn fn = k.width <= 8 ? line_fn_chan<8>(chan)
+                                 : line_fn_chan<tnt::kMaxWidth>(chan);
+  const dim3 grid(tnt::num_tiles(g) * line_pieces(g, bd),
+                  (g.batch2 + g.group - 1) / g.group);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fn<<<grid, threads, smem, s>>>(tile_bounds, values, coords, ws, st, out, g,
+                                 k, bd);
+  return cudaGetLastError();
 }
 
 using RowsFn = void (*)(const int*, const int*, const float*, const float*,
@@ -556,9 +676,9 @@ WindowsFn windows_fn(int width) {
   return windows_kernel<kRank, 16, kBanded>;
 }
 
-// The launch parameters every spread takes: a row-slab layout with one
-// warp per slab row (rank 1: bd.slab warps of kLineRun cells, one line),
-// channel groups of one or two, a width the kernels are built for.
+// The launch parameters the rank-2 and rank-3 spreads take: a row-slab
+// layout with one warp per slab row, channel groups of one or two, a
+// width the kernels are built for.
 bool rows_valid(const Geometry& g, const EsKernel& k, const tnt::Band& bd,
                 int threads) {
   return bd.slab >= 1 && bd.lines >= 1 && bd.lines <= g.e[1] &&
@@ -568,8 +688,7 @@ bool rows_valid(const Geometry& g, const EsKernel& k, const tnt::Band& bd,
 }
 
 // Launches the windows kernel (into ws/st) where `windows`, then the
-// spread on grid (outer * nslabs * nqs, channel groups); at rank 1, (outer
-// * line_pieces, channel groups).
+// spread on grid (outer * nslabs * nqs, channel groups).
 cudaError_t launch_rows(WindowsFn windows, RowsFn fn, int outer,
                         const int* tile_bounds, const int* zorigins,
                         const float* values, const float* coords, float* ws,
@@ -587,8 +706,7 @@ cudaError_t launch_rows(WindowsFn windows, RowsFn fn, int outer,
   }
   const int nslabs = (g.e[0] + bd.slab - 1) / bd.slab;
   const int nqs = (g.e[1] + bd.lines - 1) / bd.lines;
-  const int per = g.rank == 1 ? line_pieces(g, bd) : nslabs * nqs;
-  const dim3 grid(outer * per, (g.batch2 + g.group - 1) / g.group);
+  const dim3 grid(outer * nslabs * nqs, (g.batch2 + g.group - 1) / g.group);
   const int smem = ip[tnt::kSmem];
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -602,13 +720,15 @@ cudaError_t launch_rows(WindowsFn windows, RowsFn fn, int outer,
 
 // planned != 0: weights/starts are the planned artifact ([rank, slots, w]
 // float32 and [rank, slots] int32) and coords is unused; planned == 0:
-// coords is the [2 * rank, slots] payload (hi words, then lo words) and
-// weights/starts are scratch of the same shapes, which a first kernel
-// fills with the slots' windows. values is [B2, slots]; out is
-// [num_tiles, B2, *ext]. Rank 1 takes spread_line_kernel (bd.slab warps a
-// block, one line), ranks 2 and 3 spread_rows_kernel. Returns the first
-// CUDA error (0 on success; cudaErrorInvalidValue for a rank other than
-// 1, 2 or 3 or a layout the kernels do not take).
+// coords is the [2 * rank, slots] payload (hi words, then lo words) and,
+// at ranks 2 and 3, weights/starts are scratch of the same shapes, which
+// a first kernel fills with the slots' windows (rank 1 evaluates them in
+// the spread and takes null). values is [B2, slots]; out is [num_tiles,
+// B2, *ext]. Rank 1 takes spread_line_kernel (bd.slab warps a block, one
+// line, channel groups of up to kMaxLineChannels), ranks 2 and 3
+// spread_rows_kernel. Returns the first CUDA error (0 on success;
+// cudaErrorInvalidValue for a rank other than 1, 2 or 3 or a layout the
+// kernels do not take).
 extern "C" int tnt_spread(int planned, const void* tile_bounds,
                           const void* values, const void* coords,
                           void* weights, void* starts, void* out,
@@ -616,16 +736,21 @@ extern "C" int tnt_spread(int planned, const void* tile_bounds,
   const Geometry g = tnt::geometry_from(ip);
   const EsKernel k = tnt::es_from(ip, fp);
   const tnt::Band bd = tnt::band_from(ip);
-  if (g.rank < 1 || g.rank > 3 || !rows_valid(g, k, bd, ip[tnt::kThreads]))
+  if (g.rank == 1)
+    return (int)launch_line(
+        (const int*)tile_bounds, (const float*)values,
+        planned ? nullptr : (const float*)coords,
+        planned ? (const float*)weights : nullptr,
+        planned ? (const int*)starts : nullptr, (float*)out, g, k, bd, ip,
+        (cudaStream_t)stream);
+  if (g.rank < 2 || g.rank > 3 || !rows_valid(g, k, bd, ip[tnt::kThreads]))
     return (int)cudaErrorInvalidValue;
   WindowsFn windows = nullptr;
   if (!planned)
-    windows = g.rank == 1   ? windows_fn<1, false>(k.width)
-              : g.rank == 2 ? windows_fn<2, false>(k.width)
-                            : windows_fn<3, false>(k.width);
-  const RowsFn fn = g.rank == 1   ? spread_line_kernel
-                    : g.rank == 2 ? rows_fn<2, false, false>(k.width)
-                                  : rows_fn<3, false, false>(k.width);
+    windows = g.rank == 2 ? windows_fn<2, false>(k.width)
+                          : windows_fn<3, false>(k.width);
+  const RowsFn fn = g.rank == 2 ? rows_fn<2, false, false>(k.width)
+                                : rows_fn<3, false, false>(k.width);
   return (int)launch_rows(
       windows, fn, tnt::num_tiles(g), (const int*)tile_bounds, nullptr,
       (const float*)values, (const float*)coords, (float*)weights,

@@ -27,11 +27,13 @@ constexpr float kSentinel = -1.0e6f;
 // entries past the rank are 1. kDerivAxis is the interp's phi' axis, -1
 // for none. The row-slab layout of the spread and interp blocks reads
 // kSlab (axis-0 rows a spread block owns, or an interp piece stages; 0:
-// the interp reads the tile array in place), kLines (axis-1 lines a
-// spread block owns), kSubLen and kRun (an interp block serves kRun
-// pieces of kSubLen slots); the banded kernels also read kBand (axis-0
-// band rows; kSubLen is then a sub-chunk, the unit of a band origin) and
-// kN2 (the fused epilogue's axis-2 modes). Unused entries are 0.
+// the interp reads the tile array in place; rank 1: a spread block's
+// warps, of 64 cells each, or the cells an interp stage holds), kLines
+// (axis-1 lines a spread block owns), kSubLen and kRun (an interp block
+// serves kRun pieces of kSubLen slots, at rank 1 in turn); the banded
+// kernels also read kBand (axis-0 band rows; kSubLen is then a
+// sub-chunk, the unit of a band origin) and kN2 (the fused epilogue's
+// axis-2 modes). Unused entries are 0.
 enum IParam {
   kRank, kNt0, kNt1, kNt2, kTile0, kTile1, kTile2, kPad, kE0, kE1, kE2,
   kChunk, kBatch2, kGroup, kSlots, kWidth, kNHorner, kThreads, kSmem,
@@ -99,7 +101,8 @@ struct Band {
   int lines;   // spread: axis-1 lines per block
   int sublen;  // slots per sub-chunk (interp: per piece of a block)
   int n2;      // fused epilogue: modes along axis 2
-  int run;     // interp: pieces of sublen slots per block
+  int run;     // interp: pieces of sublen slots per block (rank 1: in
+               // turn)
 };
 
 inline Band band_from(const int* ip) {
@@ -142,19 +145,9 @@ __device__ __forceinline__ void tile_origins(const Geometry& g, int tile,
   }
 }
 
-// phi(z): the plan's Horner fit when it has one, else exp(beta sqrt(1 -
-// c z^2)); exactly zero outside the support.
-__device__ __forceinline__ float es_eval(float z, const EsKernel& k) {
-  if (k.n_horner > 0) {
-    const float t = __fsub_rn(__fmul_rn(__fmul_rn(z, z), k.c2), 1.0f);
-    if (!(t < 1.0f)) return 0.0f;
-    float acc = 0.0f;
-#pragma unroll
-    for (int i = kMaxHorner - 1; i >= 0; --i) {
-      if (i < k.n_horner) acc = __fadd_rn(__fmul_rn(acc, t), k.horner[i]);
-    }
-    return acc;
-  }
+// phi(z) = exp(beta sqrt(1 - c z^2)) where the plan has no Horner fit;
+// exactly zero outside the support.
+__device__ __forceinline__ float es_eval_direct(float z, const EsKernel& k) {
   if (!(fabsf(z) < k.half_width)) return 0.0f;
   const float arg =
       fmaxf(__fsub_rn(1.0f, __fmul_rn(k.c, __fmul_rn(z, z))), 0.0f);
@@ -176,6 +169,64 @@ __device__ __forceinline__ float es_eval_deriv(float z, const EsKernel& k) {
                    r);
 }
 
+// The first cell ceil(s - w/2), s = hi - origin, of es_window's window
+// (computed as es_window computes it, clamped as it clamps), without
+// the weights: a block that needs a slot's weights only where the
+// window meets its cells tests the start first.
+__device__ __forceinline__ int es_start(float hi, float origin,
+                                        const EsKernel& k) {
+  const float f0 = ceilf(__fsub_rn(__fsub_rn(hi, origin), k.half_width));
+  return (int)fminf(fmaxf(f0, -1.0e8f), 1.0e8f);
+}
+
+// phi at kW arguments z[j]: the plan's Horner fit in t = (z z) c2 - 1,
+// zero where t >= 1 (outside the support), or es_eval_direct. The fit
+// runs its n_horner terms, no more: a switch on n_horner (uniform across
+// the grid) jumps into one unrolled run of the kMaxHorner steps, each
+// step taken for every cell (kW independent chains, one switch a
+// window), each indexing the coefficients with a constant, so the
+// parameter struct stays in the constant bank. From acc = 0 the first
+// step gives exactly horner[n - 1], the value of the predicated 32-step
+// loop per cell that this replaced, whose outputs it repeats bit for bit
+// at every rank.
+template <int kW>
+__device__ __forceinline__ void es_eval_cells(const float* z,
+                                              const EsKernel& k, float* w) {
+  if (k.n_horner > 0) {
+    float t[kW], acc[kW];
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      t[j] = __fsub_rn(__fmul_rn(__fmul_rn(z[j], z[j]), k.c2), 1.0f);
+      acc[j] = 0.0f;
+    }
+#define TNT_HORNER_STEP(i)                                    \
+  case (i) + 1:                                               \
+    _Pragma("unroll") for (int j = 0; j < kW; ++j) acc[j] =   \
+        __fadd_rn(__fmul_rn(acc[j], t[j]), k.horner[(i)]);
+    switch (k.n_horner) {  // each case falls through to the next
+      default:  // more than kMaxHorner terms: the first kMaxHorner
+      TNT_HORNER_STEP(31) TNT_HORNER_STEP(30) TNT_HORNER_STEP(29)
+      TNT_HORNER_STEP(28) TNT_HORNER_STEP(27) TNT_HORNER_STEP(26)
+      TNT_HORNER_STEP(25) TNT_HORNER_STEP(24) TNT_HORNER_STEP(23)
+      TNT_HORNER_STEP(22) TNT_HORNER_STEP(21) TNT_HORNER_STEP(20)
+      TNT_HORNER_STEP(19) TNT_HORNER_STEP(18) TNT_HORNER_STEP(17)
+      TNT_HORNER_STEP(16) TNT_HORNER_STEP(15) TNT_HORNER_STEP(14)
+      TNT_HORNER_STEP(13) TNT_HORNER_STEP(12) TNT_HORNER_STEP(11)
+      TNT_HORNER_STEP(10) TNT_HORNER_STEP(9) TNT_HORNER_STEP(8)
+      TNT_HORNER_STEP(7) TNT_HORNER_STEP(6) TNT_HORNER_STEP(5)
+      TNT_HORNER_STEP(4) TNT_HORNER_STEP(3) TNT_HORNER_STEP(2)
+      TNT_HORNER_STEP(1) TNT_HORNER_STEP(0)
+    }
+#undef TNT_HORNER_STEP
+    static_assert(kMaxHorner == 32, "one Horner step per coefficient");
+#pragma unroll
+    for (int j = 0; j < kW; ++j) w[j] = t[j] < 1.0f ? acc[j] : 0.0f;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kW; ++j) w[j] = es_eval_direct(z[j], k);
+  }
+}
+
 // One axis of a slot's kernel window: writes w[0..width) =
 // phi(((i0 + j) - s) - lo) (phi' with `deriv`) with s = hi - origin,
 // i0 = ceil(s - w/2), and returns i0 (clamped so far-out or NaN
@@ -189,14 +240,19 @@ __device__ __forceinline__ int es_window(float hi, float lo, float origin,
                                          bool deriv = false) {
   const float s = __fsub_rn(hi, origin);
   const float f0 = ceilf(__fsub_rn(s, k.half_width));
+  float z[kW], phi[kW];
 #pragma unroll
-  for (int j = 0; j < kW; ++j) {
-    if (j < k.width) {
-      const float z =
-          __fsub_rn(__fsub_rn(__fadd_rn(f0, (float)j), s), lo);
-      w[j] = deriv ? es_eval_deriv(z, k) : es_eval(z, k);
-    }
+  for (int j = 0; j < kW; ++j)
+    z[j] = __fsub_rn(__fsub_rn(__fadd_rn(f0, (float)j), s), lo);
+  if (deriv) {
+#pragma unroll
+    for (int j = 0; j < kW; ++j) phi[j] = es_eval_deriv(z[j], k);
+  } else {
+    es_eval_cells<kW>(z, k, phi);
   }
+#pragma unroll
+  for (int j = 0; j < kW; ++j)
+    if (j < k.width) w[j] = phi[j];
   return (int)fminf(fmaxf(f0, -1.0e8f), 1.0e8f);
 }
 
@@ -215,13 +271,14 @@ __device__ __forceinline__ int es_window_exact(float hi, float lo,
                                                float origin,
                                                const EsKernel& k, float* w) {
   const float c = ceilf(__fsub_rn(hi, k.half_width));
+  float z[kW], phi[kW];
 #pragma unroll
-  for (int j = 0; j < kW; ++j) {
-    if (j < k.width) {
-      const float z = __fsub_rn(__fsub_rn(__fadd_rn(c, (float)j), hi), lo);
-      w[j] = es_eval(z, k);
-    }
-  }
+  for (int j = 0; j < kW; ++j)
+    z[j] = __fsub_rn(__fsub_rn(__fadd_rn(c, (float)j), hi), lo);
+  es_eval_cells<kW>(z, k, phi);
+#pragma unroll
+  for (int j = 0; j < kW; ++j)
+    if (j < k.width) w[j] = phi[j];
   return (int)fminf(fmaxf(__fsub_rn(c, origin), -1.0e8f), 1.0e8f);
 }
 

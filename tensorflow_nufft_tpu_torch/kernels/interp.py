@@ -30,7 +30,9 @@ a block serves up to 512 slots of one chunk for one channel, one thread
 per slot with its windows in registers, and stages the axis-0 rows its
 windows touch (banded: the union of its sub-chunks' bands) in
 double-buffered pieces with asynchronous copies (``launch_shape``,
-``banded_shape``).
+``banded_shape``). At rank 1 a block serves every channel from one
+window a slot, for up to ``LINE_UNITS`` units of slots in turn, staging
+its tile's line of each channel once for all of them (``line_units``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,20 @@ from tensorflow_nufft_tpu_torch.kernels.binning import (
 # Slots one interp block serves at most (one thread each; kMaxSlotThreads
 # in csrc/interp.cu).
 MAX_SLOTS = 512
+# Shared memory of a rank-1 interp block's staged lines at most: two
+# blocks per SM (half its 228 KB, less the 1 KB each block reserves).
+LINE_SMEM = 113 * 1024
+# Units of slots (``launch_shape``'s ``slots``) a rank-1 interp block
+# takes in turn at most, staging its tile's lines once for all of them.
+LINE_UNITS = 8
+
+
+def line_units(geom: TileGeometry) -> int:
+    """Units a rank-1 interp block takes in turn: up to ``LINE_UNITS``,
+    fewer where that would leave fewer than 4096 blocks (the 132 SMs of
+    an H100 then still hold several waves)."""
+    units = geom.num_slots // launch_shape(geom)[2]
+    return max(1, min(LINE_UNITS, units // 4096))
 
 
 def piece_rows(geom: TileGeometry) -> int:
@@ -64,18 +80,39 @@ def piece_rows(geom: TileGeometry) -> int:
     return min(geom.ext[0], slab)
 
 
-def launch_shape(geom: TileGeometry):
-    """(slab, slots, threads, smem bytes) of an interp launch: a block
-    serves ``slots`` consecutive slots of one chunk (the most that divide
-    the chunk within ``MAX_SLOTS``), one thread each (``threads``: whole
-    warps), for one channel, and stages the axis-0 rows their windows
-    touch in two buffers of ``slab`` rows (``piece_rows``). Every
-    geometry fits."""
+def launch_shape(geom: TileGeometry, batch2: int = 1):
+    """(group, slab, slots, threads, smem bytes) of an interp launch of
+    ``batch2`` channels: a block serves ``slots`` consecutive slots of
+    one chunk (the most that divide the chunk within ``MAX_SLOTS``), one
+    thread each (``threads``: whole warps).
+
+    Ranks 2 and 3: one channel a block (``group`` 1); the block stages
+    the axis-0 rows its windows touch in two buffers of ``slab`` rows
+    (``piece_rows``).
+
+    Rank 1: every channel in one block, in groups of ``group`` channels,
+    each staged as pieces of ``slab`` cells of the tile's line: all
+    channels' whole lines where they fit ``LINE_SMEM`` (one buffer),
+    else groups of whole lines in two buffers, else (a line above half
+    of it) one channel at a time in pieces of at most half of it.
+
+    Every geometry fits."""
     slots = next(d for d in range(min(geom.chunk, MAX_SLOTS), 0, -1)
                  if geom.chunk % d == 0)
+    threads = -(-slots // 32) * 32
+    if geom.rank == 1:
+        line = 4 * geom.ext[0]
+        if batch2 * line <= LINE_SMEM:
+            return batch2, geom.ext[0], slots, threads, batch2 * line
+        most = LINE_SMEM // (2 * line)
+        if most >= 1:
+            group = -(-batch2 // -(-batch2 // most))
+            return group, geom.ext[0], slots, threads, 2 * group * line
+        slab = LINE_SMEM // 8 // 4 * 4
+        return 1, slab, slots, threads, 2 * 4 * slab
     slab = piece_rows(geom)
     plane = 4 * int(np.prod(geom.ext[1:]))
-    return slab, slots, -(-slots // 32) * 32, 2 * slab * plane
+    return 1, slab, slots, threads, 2 * slab * plane
 
 
 def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
@@ -97,10 +134,10 @@ def _launch(tiles, tile_bounds, geom: TileGeometry, plan,
         need(coords, "coords", f32, (2 * rank, slots))
         ptrs = (coords.data_ptr(), 0, 0)
     lib = _build.library()
-    slab, per, threads, smem = launch_shape(geom)
-    ints, floats = _build.kernel_params(geom, plan, batch2, 1, threads,
-                                        smem, deriv_axis, slab=slab,
-                                        sublen=per, run=1)
+    group, slab, per, threads, smem = launch_shape(geom, batch2)
+    ints, floats = _build.kernel_params(
+        geom, plan, batch2, group, threads, smem, deriv_axis, slab=slab,
+        sublen=per, run=line_units(geom) if rank == 1 else 1)
     # Zeros: chunks past tile_bounds[-1] are never written by the kernel.
     out = torch.zeros((geom.num_chunks, batch2, geom.chunk),
                       dtype=torch.float32, device=tiles.device)

@@ -10,15 +10,17 @@ Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_spread`` (ranks 1,
   precomputed per-slot windows (``KernelWeights``).
 - ``spread_unplanned_cuda`` replaces ``pallas_spread._spread_kernel_
   resident`` and ``_spread_kernel`` (the per-tile grid): windows
-  evaluated on the card from the coords payload, once per slot by a
-  first kernel.
+  evaluated on the card from the coords payload, once per slot (ranks 2
+  and 3: by a first kernel; rank 1: in the spread's block that uses
+  them).
   It also replaces the wide-channel pair
   ``_spread_kernel_resident_split`` and ``_spread_kernel_split``, which
   the TPU takes once a channel group no longer fits one 8-row payload
   beside its coordinates (2 * rank + B2 > 8: training's source and
   points gradients): coords and values are separate payloads here at
-  every width, and channel pairs go to the launch grid's second
-  dimension, the last one partial. Values are always read in slot
+  every width, and channel pairs (rank 1: groups of up to
+  ``LINE_CHANNELS``) go to the launch grid's second dimension, the last
+  one partial. Values are always read in slot
   order, so the split pair's slot-order input (``values_slots``, of
   ``PlannedNufft.normal`` and ``apply_from_slots``) only skips the
   caller's gather (``dispatch.spread_tiled``).
@@ -46,8 +48,10 @@ slots that hit its row with one ballot per 32 slots and spreads each
 hit's window across its lanes in slot order: every output cell has one
 owner and a fixed order (deterministic, no atomics). At rank 1, where a
 row is one cell, a warp owns a run of ``LINE_RUN`` cells of a tile's
-line instead, two a lane in registers, and blocks of up to ``ROW_WARPS``
-warps cover a tile's runs.
+line instead, two a lane in registers for up to ``LINE_CHANNELS``
+channels, and blocks of up to ``LINE_WARPS`` warps cover a tile's runs,
+taking the tile's slots in batches whose windows the block evaluates
+(or loads) once into shared memory.
 """
 
 from __future__ import annotations
@@ -72,6 +76,17 @@ ROW_WARPS = 16
 HALF_SM = 113 * 1024
 # Cells of a rank-1 tile's line one warp owns (kLineRun in csrc/spread.cu).
 LINE_RUN = 64
+# Warps of a rank-1 spread block at most (kMaxLineThreads / 32), and the
+# channels it serves from one evaluation of its windows
+# (kMaxLineChannels).
+LINE_WARPS = 32
+LINE_CHANNELS = 8
+
+
+def line_channels(group: int) -> int:
+    """Channels a rank-1 spread block holds for a group of ``group``: the
+    next power of two (``line_channels`` in csrc/spread.cu)."""
+    return 1 << (group - 1).bit_length()
 
 
 def launch_shape(geom: TileGeometry, batch2: int, width: int,
@@ -85,16 +100,23 @@ def launch_shape(geom: TileGeometry, batch2: int, width: int,
     each, that let two blocks share an SM, evened out over E0. Every
     geometry fits: a line is at most E2 floats a channel.
 
-    Rank 1: ``slab`` is the warps of a block, each owning ``LINE_RUN``
-    cells of the line (at most ``ROW_WARPS``, evened out over the runs
-    of E0; blocks of a tile on the grid), ``lines`` is 1, and the shared
-    memory holds each warp's copy of 32 slots' windows."""
+    Rank 1: ``group`` is up to ``LINE_CHANNELS`` channels, all served by
+    one block from one evaluation of the windows (wider channel counts
+    take groups on the grid); ``slab`` is the warps of a block, each
+    owning ``LINE_RUN`` cells of the line (at most ``LINE_WARPS``,
+    evened out over the runs of E0; blocks of a tile on the grid);
+    ``lines`` is 1; the shared memory holds two batches of one slot a
+    thread: its values (``line_channels(group)`` floats), window start
+    and weights."""
     rank = geom.rank
-    group = 2 if fused else min(batch2, 2)
     if rank == 1:
+        group = min(batch2, LINE_CHANNELS)
         runs = -(-geom.ext[0] // LINE_RUN)
-        slab = -(-runs // -(-runs // ROW_WARPS))
-        return group, slab, 1, 32 * slab, 4 * 32 * slab * width
+        slab = -(-runs // -(-runs // LINE_WARPS))
+        threads = 32 * slab
+        return group, slab, 1, threads, 2 * threads * 4 * (
+            line_channels(group) + 1 + width)
+    group = 2 if fused else min(batch2, 2)
     e0, e1 = geom.ext[:2]
     line = geom.ext[2] if rank == 3 else 1
     win = 4 * 32 * (rank - 1) * width
@@ -127,10 +149,14 @@ def _launch(values_pl, tile_bounds, geom: TileGeometry, plan,
         ws, st, coords_ptr = kw.weights, kw.starts, 0
     else:
         need(coords, "coords", f32, (2 * rank, slots))
-        # The slots' windows, evaluated once per call by a first kernel.
-        ws = torch.empty((rank, slots, plan.width), dtype=f32, device=dev)
-        st = torch.empty((rank, slots), dtype=i32, device=dev)
         coords_ptr = coords.data_ptr()
+        if rank == 1:  # the spread evaluates them as it takes the slots
+            ws = st = None
+        else:
+            # The slots' windows, evaluated once per call by a first kernel.
+            ws = torch.empty((rank, slots, plan.width), dtype=f32,
+                             device=dev)
+            st = torch.empty((rank, slots), dtype=i32, device=dev)
     lib = _build.library()
     group, slab, lines, threads, smem = launch_shape(geom, batch2,
                                                      plan.width)
@@ -141,9 +167,10 @@ def _launch(values_pl, tile_bounds, geom: TileGeometry, plan,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tnt_spread(int(kw is not None), tile_bounds.data_ptr(),
-                            values_pl.data_ptr(), coords_ptr, ws.data_ptr(),
-                            st.data_ptr(), out.data_ptr(), ints, floats,
-                            stream)
+                            values_pl.data_ptr(), coords_ptr,
+                            0 if ws is None else ws.data_ptr(),
+                            0 if st is None else st.data_ptr(),
+                            out.data_ptr(), ints, floats, stream)
     _build.check(rc, "spread kernel launch")
     return out.reshape(geom.tiles + (batch2,) + geom.ext)
 

@@ -8,6 +8,8 @@ without it:
     python -m pytest --noconftest -o markers=cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,8 @@ from tensorflow_nufft_tpu_torch.fft import planar_fft
 from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft, dfta_twiddles
 from tensorflow_nufft_tpu_torch.kernels import binning, interp, mode3d, spread
 from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
-from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+from tensorflow_nufft_tpu_torch.plan.plan import (
+    PlanSpec, fit_horner_coeffs, make_plan)
 
 pytestmark = pytest.mark.cuda
 RTOL = 1e-5
@@ -626,6 +629,98 @@ def test_rank1_kernels_match_plain(dev, grid, m, tol, kev, clustered, b2,
         got = kernel()
         _close(got, plain())
         assert torch.equal(kernel(), got)
+
+
+@pytest.mark.parametrize("kev", ("horner", "direct"))
+@pytest.mark.parametrize("b2", (2, 8))
+def test_rank1_kernels_match_plain_at_width_16(dev, kev, b2):
+    """The widest window (w = 16: a complex128 plan's width at tol 1e-15,
+    with exp/sqrt or a Horner fit of that width, on float32 data): the
+    rank-1 spread, interp and phi' interp, unplanned and planned, against
+    their plain versions; a second call repeats bit for bit."""
+    plan = make_plan(PlanSpec("type_1", "forward", 1, (2000,), "complex128",
+                              1e-15, 1))
+    if kev == "horner":
+        plan = dataclasses.replace(plan, horner=fit_horner_coeffs(
+            plan.width, plan.beta, 1e-7))
+    assert plan.width == 16 and (plan.horner is None) == (kev == "direct")
+    rng = np.random.default_rng(16)
+    pts = rng.uniform(-np.pi, np.pi, (6000, 1)).astype(np.float32)
+    geom, binned = bin_for_plan(torch.from_numpy(pts).to(dev), plan)
+    coords = binning.build_coords_payload(binned)
+    kw = binning.build_weight_payload(binned, geom, plan)
+    tb = binned.tile_bounds
+    values_pl = binning.build_values_payload(torch.from_numpy(
+        rng.standard_normal((b2, 6000)).astype(np.float32)).to(dev), binned)
+    tiles = torch.from_numpy(rng.standard_normal(
+        geom.tiles + (b2,) + geom.ext).astype(np.float32)).to(dev)
+    calls = (
+        (lambda: spread.spread_unplanned_cuda(values_pl, tb, geom, plan,
+                                              coords),
+         lambda: spread.spread_tiles_plain(values_pl, tb, geom, plan,
+                                           coords=coords)),
+        (lambda: spread.spread_planned_cuda(values_pl, tb, geom, plan, kw),
+         lambda: spread.spread_tiles_plain(values_pl, tb, geom, plan,
+                                           kw=kw)),
+        (lambda: interp.interp_unplanned_cuda(tiles, tb, geom, plan, coords),
+         lambda: interp.interp_tiles_plain(tiles, tb, geom, plan,
+                                           coords=coords)),
+        (lambda: interp.interp_planned_cuda(tiles, tb, geom, plan, kw),
+         lambda: interp.interp_tiles_plain(tiles, tb, geom, plan, kw=kw)),
+        (lambda: interp.interp_deriv_cuda(tiles, tb, geom, plan, coords, 0),
+         lambda: interp.interp_tiles_plain(tiles, tb, geom, plan,
+                                           coords=coords, deriv_axis=0)))
+    for kernel, plain in calls:
+        got = kernel()
+        _close(got, plain())
+        assert torch.equal(kernel(), got)
+
+
+@pytest.mark.parametrize("units", (None, 5))
+@pytest.mark.parametrize("source", ("planned", "unplanned"))
+def test_rank1_kernels_repeat_bit_for_bit_at_b2_8(dev, monkeypatch, source,
+                                                  units):
+    """At B2 = 8 one block serves every channel (the spread from one
+    window evaluation a slot, the interp from one window a thread): the
+    1D mats-size geometry (128 tiles of ext 1032, 17-warp spread blocks)
+    with 200,000 points, held to the plain versions, five calls of each
+    kernel equal bit for bit, and each channel equal to the same kernel
+    run on that channel alone; with ``units``, interp blocks that take 5
+    units of slots in turn (the headline's plan takes 8), crossing tile
+    boundaries."""
+    if units is not None:
+        monkeypatch.setattr(interp, "line_units", lambda geom: units)
+    plan, geom, binned, kw, coords = _layout((65536,), 200_000, 1e-6, dev)
+    rng = np.random.default_rng(8)
+    values_pl = binning.build_values_payload(torch.from_numpy(
+        rng.standard_normal((8, 200_000)).astype(np.float32)).to(dev),
+        binned)
+    tiles = torch.from_numpy(rng.standard_normal(
+        geom.tiles + (8,) + geom.ext).astype(np.float32)).to(dev)
+    tb = binned.tile_bounds
+    weights = dict(kw=kw) if source == "planned" else dict(coords=coords)
+    if source == "planned":
+        def run_spread(v):
+            return spread.spread_planned_cuda(v, tb, geom, plan, kw)
+
+        def run_interp(f):
+            return interp.interp_planned_cuda(f, tb, geom, plan, kw)
+    else:
+        def run_spread(v):
+            return spread.spread_unplanned_cuda(v, tb, geom, plan, coords)
+
+        def run_interp(f):
+            return interp.interp_unplanned_cuda(f, tb, geom, plan, coords)
+    for run, x, axis, plain in (
+            (run_spread, values_pl, 0, spread.spread_tiles_plain),
+            (run_interp, tiles, 1, interp.interp_tiles_plain)):
+        first = run(x)
+        _close(first, plain(x, tb, geom, plan, **weights))
+        for _ in range(4):
+            assert torch.equal(run(x), first)
+        for c in range(8):
+            one = x.narrow(axis, c, 1).contiguous()
+            assert torch.equal(run(one), first.narrow(-2, c, 1))
 
 
 @pytest.mark.parametrize("transform_type", ("type_1", "type_2"))

@@ -217,5 +217,6 @@ def test_launch_shapes_at_the_3d_headline():
     group, slab, lines, threads, smem = spread.launch_shape(geom, 2, 7)
     assert (group, slab, lines, threads) == (2, 6, 24, 192)
     assert smem == 6 * 4 * (2 * 24 * 72 + 64 * 7) <= spread.HALF_SM
-    slab, slots, threads, smem = interp.launch_shape(geom)
-    assert (slab, slots, threads, smem) == (8, 512, 512, 2 * 8 * 4 * 24 * 72)
+    group, slab, slots, threads, smem = interp.launch_shape(geom, 2)
+    assert (group, slab, slots, threads, smem) == (
+        1, 8, 512, 512, 2 * 8 * 4 * 24 * 72)

@@ -46,7 +46,8 @@ def test_launch_plans_take_every_geometry(rank, n, tol, b2):
     assert smem == 4 * slab * (group * lines * line
                                + 32 * (rank - 1) * plan.width)
 
-    slab, slots, threads, smem = interp.launch_shape(geom)
+    group, slab, slots, threads, smem = interp.launch_shape(geom, b2)
+    assert group == 1
     assert geom.chunk % slots == 0 and slots <= threads <= 1024
     assert threads % 32 == 0 and threads - slots < 32
     assert 0 <= slab <= e0 and smem <= _build.SMEM_LIMIT
@@ -66,17 +67,34 @@ def test_rank1_launch_plans_take_every_geometry(nf, width, b2):
     geom = binning.choose_geometry((nf,), width, 10_000_000)
     e0 = geom.ext[0]
     group, slab, lines, threads, smem = spread.launch_shape(geom, b2, width)
-    assert group == min(b2, 2) and lines == 1
-    assert 1 <= slab <= spread.ROW_WARPS and threads == 32 * slab
+    # A block serves up to LINE_CHANNELS channels from one evaluation of
+    # its windows; the groups on the grid cover every channel.
+    assert group == min(b2, spread.LINE_CHANNELS) and lines == 1
+    assert -(-b2 // group) * group >= b2 > (-(-b2 // group) - 1) * group
+    assert 1 <= slab <= spread.LINE_WARPS and threads == 32 * slab <= 1024
     # The blocks of a tile cover its line in runs of LINE_RUN cells, one
     # warp each, with fewer than one block's warps to spare.
     runs = -(-e0 // spread.LINE_RUN)
     blocks = -(-runs // slab)
     assert blocks * slab >= runs and (blocks - 1) * slab < runs
     assert blocks * slab - runs < blocks
-    assert smem == 4 * 32 * slab * width <= _build.SMEM_LIMIT
+    # Two batches of one slot a thread: values, start and window.
+    chan = spread.line_channels(group)
+    assert group <= chan < 2 * group
+    assert smem == 2 * threads * 4 * (chan + 1 + width)
+    assert smem <= _build.SMEM_LIMIT
 
-    slab, slots, threads, smem = interp.launch_shape(geom)
+    group, slab, slots, threads, smem = interp.launch_shape(geom, b2)
     assert geom.chunk % slots == 0 and slots <= threads <= 1024
     assert threads % 32 == 0 and threads - slots < 32
-    assert 1 <= slab <= e0 and smem == 2 * slab * 4 <= _build.SMEM_LIMIT
+    # Every channel in one block, in groups staged in turn; pieces of the
+    # line only one channel at a time; one buffer where one stage holds
+    # every channel's line.
+    assert 1 <= group <= b2 and 1 <= slab <= e0
+    groups = -(-b2 // group)
+    assert groups * group >= b2 > (groups - 1) * group
+    assert slab == e0 or (group == 1 and slab % 4 == 0)
+    bufs = 1 if groups * -(-e0 // slab) == 1 else 2
+    assert smem == bufs * group * slab * 4 <= _build.SMEM_LIMIT
+    # A block takes up to LINE_UNITS units of slots in turn.
+    assert 1 <= interp.line_units(geom) <= interp.LINE_UNITS
