@@ -45,7 +45,17 @@ Phases:
    interp, fold3d, truncate_deconvolve3d, amplify_pad3d and
    extend_tiles3d against their plain versions on the card, with the
    same 1e-5 bound; the per-slot-window kernels there (the planned
-   route at the "mats" level) held and timed for comparison.
+   route at the "mats" level) held and timed for comparison. The halo
+   kernels (extend_tiles3d, fold3d) also repeated bit for bit and timed
+   beside the one PyTorch call that computes the same function (the
+   library time: torch.take of the grid's float32 view for extend, a
+   zero fill and index_add_ for fold, with int64 indices built outside
+   the timed call; the port never calls them). The FFT kernel (fft3d,
+   the DFT of the 3D mode stage, one launch per axis) against torch.fft
+   on the 256^3 grid in both directions, repeated bit for bit and timed
+   beside it (torch.fft is both its plain version and its library
+   call); again on the fused route's [1, 256, 256, 128] (two axes) and
+   the large-tile cell's 320^3 grid.
 7. 3D end to end: zeroes the counters, runs PlannedNufft type-1 (the
    binned level: the banded spread and the staged mode stage) and its
    adjoint() (the banded interp), then planar.nufft type-1 and type-2,
@@ -63,7 +73,9 @@ Phases:
    (row 13, its chunk- and point-order outputs), the fused spread with
    its axis-2 epilogue (row 9) and the two-axis fold and truncation after
    it, each against its plain version (1e-5 of the peak) and timed; the
-   banded spread and interp repeated bit for bit.
+   banded spread and interp repeated bit for bit; extend_tiles3d, fold3d
+   and fold2 at this geometry as in phase 6 (held, repeated, timed with
+   their library calls).
 9. 3D planned surface at the binned level: as phase 5 on the adjoint
    (type-2) plan, with launch counts.
 10. The type-1 routes: the fused and the staged route held to each other
@@ -95,7 +107,8 @@ Phases:
    kernel argument of one 308-wide tile in 2D), below 4x that
    pipeline's own errors, the census rule of phase 7 applied to both.
    Then the spread and interp kernels held to their plain versions at
-   both geometries and timed.
+   both geometries and timed, and the halo kernels at the 3D one as in
+   phase 6.
 14. Training kernels: the derivative interp (phi' on one axis) on each
    axis at the 2D headline and on axis 0 at the 3D headline, and the
    unplanned spread at 6, 16 and 32 channels (2D) and 6 (3D), against
@@ -374,6 +387,10 @@ KERNELS = {
                       f"{_PD}:222,246,261", "3d"),
     "extend_tiles3d": ("mode3d.extend_tiles3d_cuda", "mode3d.cu",
                        f"{_PD}:222,246,261", "3d"),
+    # The DFT arithmetic of the six pass kernels (their twiddle-matrix
+    # products): a mixed-radix FFT, one launch per axis.
+    "fft3d": ("fft3d.fft3d_cuda", "fft3d.cu",
+              f"{_PD}:222,246,261,346,362,384", "3d"),
     # Training. The JAX plan spreads 2 * rank + B2 > 8 channels with its
     # split-payload kernels: the resident one at the 2D headline for B2 =
     # 6 (a batch-3 type-1 loss), the per-tile one for B2 = 16 (the source
@@ -471,26 +488,29 @@ PHASE_KERNELS = {
     "2d_slots": ("spread_planned", "interp_planned"),
     "3d": ("spread3d_banded", "spread3d_unplanned", "interp3d_banded",
            "interp3d_unplanned", "fold3d", "truncate_deconvolve3d",
-           "amplify_pad3d", "extend_tiles3d"),
+           "amplify_pad3d", "extend_tiles3d", "fft3d"),
     "3d_slots": ("spread3d_banded_split", "interp3d_banded", "fold3d",
-                 "truncate_deconvolve3d", "amplify_pad3d", "extend_tiles3d"),
+                 "truncate_deconvolve3d", "amplify_pad3d", "extend_tiles3d",
+                 "fft3d"),
     "3d_fused": ("spread3d_dfta", "fold2", "truncate_deconvolve2",
-                 "interp3d_banded", "amplify_pad3d", "extend_tiles3d"),
+                 "interp3d_banded", "amplify_pad3d", "extend_tiles3d",
+                 "fft3d"),
     "train2d": ("spread_split", "interp_unplanned"),
     "train2d_planned": ("spread_planned", "interp_planned"),
     "train2d_type1": ("spread_split_resident", "interp_unplanned"),
     "train3d": ("spread3d_unplanned", "interp3d_unplanned", "fold3d",
-                "truncate_deconvolve3d", "amplify_pad3d", "extend_tiles3d"),
+                "truncate_deconvolve3d", "amplify_pad3d", "extend_tiles3d",
+                "fft3d"),
     "spread_only_2d": ("spread_unplanned", "interp_unplanned",
                        "interp_deriv"),
     "spread_only_3d": ("spread3d_unplanned", "interp3d_unplanned",
                        "extend_tiles3d", "fold3d", "interp3d_deriv"),
     "planned3d_mats": ("spread3d_planned_mats", "interp3d_planned_mats",
                        "fold3d", "truncate_deconvolve3d", "amplify_pad3d",
-                       "extend_tiles3d"),
+                       "extend_tiles3d", "fft3d"),
     "large3d": ("spread3d_unplanned_large", "interp3d_unplanned_large",
                 "fold3d", "truncate_deconvolve3d", "amplify_pad3d",
-                "extend_tiles3d"),
+                "extend_tiles3d", "fft3d"),
     "large2d": ("spread2d_unplanned_large", "interp2d_unplanned_large"),
     "1d": ("spread_unplanned_1d", "interp_unplanned_1d"),
     "1d_slots": ("spread_split_1d", "interp_unplanned_1d"),
@@ -508,8 +528,10 @@ PHASE_KERNELS = {
 
 def wrappers():
     """Kernel name -> its CUDA wrapper (which holds the launch count)."""
-    from tensorflow_nufft_tpu_torch.kernels import interp, mode3d, spread
-    modules = {"spread": spread, "interp": interp, "mode3d": mode3d}
+    from tensorflow_nufft_tpu_torch.kernels import (fft3d, interp, mode3d,
+                                                    spread)
+    modules = {"spread": spread, "interp": interp, "mode3d": mode3d,
+               "fft3d": fft3d}
     out = {}
     for name, (path, _, _, _) in KERNELS.items():
         module, fn = path.split(".")
@@ -542,15 +564,15 @@ def step_launches():
     return counts
 
 
-def hold(name, kernel, plain, results):
-    """Runs ``kernel`` once (its launch count must rise by one) and holds
-    it to ``plain``; records the max abs error."""
+def hold(name, kernel, plain, results, launches=1):
+    """Runs ``kernel`` once (its launch count must rise by ``launches``)
+    and holds it to ``plain``; records the max abs error."""
     import torch
     fn = wrappers()[name]
     before = fn.launches
     got = kernel()
     torch.cuda.synchronize()
-    if fn.launches != before + 1:
+    if fn.launches != before + launches:
         raise RuntimeError(f"{name}: launch counter did not rise")
     ref = plain()
     if got.is_complex():
@@ -566,17 +588,126 @@ def hold(name, kernel, plain, results):
     res["max_abs_err"] = max(res["max_abs_err"], err)
 
 
-def time_pair(name, kernel, plain, results, work, plain_reps=5):
+def time_pair(name, kernel, plain, results, work, plain_reps=5,
+              library=None, label=None):
     """Times ``kernel`` and ``plain`` (``plain_reps`` runs: it is no
-    yardstick of speed) and records them with the bound of ``work`` =
-    (bytes, operations)."""
+    yardstick of speed) and, where one PyTorch call computes the same
+    function, that ``library`` call, and records them with the bound of
+    ``work`` = (bytes, operations)."""
     res = results[name]
     res["ms"] = cuda_ms(kernel)
     res["plain_ms"] = cuda_ms(plain, reps=plain_reps, warmup=1)
     res["bound_ms"], res["bound_by"] = bound(*work)
-    log(f"time {name}: kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+    lib = ""
+    if library is not None:
+        res["library_ms"] = cuda_ms(library)
+        lib = f", library {res['library_ms']:.4f} ms"
+    log(f"time {label or name}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms{lib}, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']}: {work[0]:.4e} B, {work[1]:.4e} flop)")
+
+
+def library_call(kind, geom, batch, source, out, axes=3):
+    """The one PyTorch call that computes the halo kernel ``kind`` on
+    ``source`` (the yardstick; the port never calls it): a gather,
+    ``torch.take`` of the grid's float32 view, for "extend"; a zero fill
+    and one ``index_add_`` of the flat tile array for "fold". Both use an
+    int64 index of the tile array's shape [*tiles, 2B, *ext] (axes 2: y
+    [nt0, nt1, 2B, E0, E1, n2]) into the flat float32 view of the grid
+    [B, *fine, 2], built here, outside the timed call. Raises unless the
+    call gives the kernel's output ``out``."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import binning
+    fine = (batch,) + geom.fine_shape
+    flat = torch.arange(2 * int(np.prod(fine)), device=source.device)
+    index = binning.extend_tiles(flat.reshape(fine + (2,)).movedim(-1, 1)
+                                 .reshape((2 * batch,) + geom.fine_shape),
+                                 geom)
+    if axes == 2:   # one untiled block on axis 2: its core, no halo
+        index = index[:, :, 0].narrow(-1, geom.pad, geom.tile[2])
+    index = index.contiguous()
+    if kind == "extend":
+        grid = torch.view_as_real(source)
+
+        def call():
+            return torch.take(grid, index)
+        same = bool(torch.equal(call(), out))
+    else:
+        src, index = source.reshape(-1), index.reshape(-1)
+
+        def call():
+            return torch.zeros(flat.numel(), device=src.device).index_add_(
+                0, index, src)
+        want = call()
+        err = float((torch.view_as_real(out).reshape(-1) - want).abs().max())
+        same = err <= KERNEL_RTOL * float(want.abs().max())
+    if not same:
+        raise RuntimeError(f"the {kind} library call computes another "
+                           f"function")
+    return call
+
+
+def halo_phase(label, geom, batch, tiles, fine, results, y=None,
+               plain_reps=5):
+    """extend_tiles3d and fold3d (and fold2 on the fused route's ``y``)
+    at ``geom``: held to their plain versions, repeated bit for bit, and
+    timed beside their library calls (``library_call``: torch.take, or a
+    zero fill and index_add_, with an int64 index built outside the
+    timed call) and bounds into ``results``."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import mode3d
+    wrap = wrappers()
+    # (bytes, operations): tile array and grid once each, one add per
+    # tile element for the fold.
+    nbytes = 4 * tiles.numel() + 8 * fine.numel()
+    cases = [("extend_tiles3d", functools.partial(
+                  wrap["extend_tiles3d"], fine, geom),
+              functools.partial(mode3d.extend_plain, fine, geom),
+              fine, (nbytes, 0), 3, geom),
+             ("fold3d", functools.partial(wrap["fold3d"], tiles, geom,
+                                          batch),
+              functools.partial(mode3d.fold_plain, tiles, geom, batch),
+              tiles, (nbytes, tiles.numel()), 3, geom)]
+    if y is not None:
+        g2 = mode3d._modes2_geometry(geom, y.shape[-1])
+        cases.append(("fold2", functools.partial(wrap["fold2"], y, geom,
+                                                 batch),
+                      functools.partial(mode3d.fold_plain, y, geom, batch,
+                                        axes=2),
+                      y, (4 * y.numel() + 8 * batch * int(np.prod(
+                          g2.fine_shape)), y.numel()), 2, g2))
+    for name, kernel, plain, source, work, axes, g in cases:
+        hold(name, kernel, plain, results)
+        first = kernel()
+        if not all(torch.equal(first, kernel()) for _ in range(2)):
+            raise RuntimeError(f"{name} at {label} is not bit-repeatable")
+        library = library_call("extend" if name == "extend_tiles3d"
+                               else "fold", g, batch, source, first, axes)
+        time_pair(name, kernel, plain, results, work, plain_reps, library,
+                  f"{name} {label}")
+        del first, library
+        torch.cuda.empty_cache()
+
+
+def fft_phase(label, x, dims, direction, results, plain_reps=5):
+    """fft3d over ``dims`` of the complex64 grid ``x``: held to its plain
+    version (torch.fft, which is also the one library call of the same
+    function, cuFFT), repeated bit for bit, and timed into ``results``
+    with the bound: the grid read and written once, 5 N log2 N flops per
+    transform of N cells."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import fft3d
+    kernel = functools.partial(wrappers()["fft3d"], x, dims, direction)
+    plain = functools.partial(fft3d.fft_plain, x, dims, direction)
+    hold("fft3d", kernel, plain, results, launches=len(dims))
+    if not torch.equal(kernel(), kernel()):
+        raise RuntimeError(f"fft3d at {label} is not bit-repeatable")
+    cells = int(np.prod([x.shape[d] for d in dims]))
+    work = (16 * x.numel(), 5 * x.numel() * np.log2(cells))
+    time_pair("fft3d", kernel, plain, results, work, plain_reps, plain,
+              f"fft3d {label} {tuple(x.shape)} dims {tuple(dims)} "
+              f"{direction}")
+    torch.cuda.empty_cache()
 
 
 def kernel_phase(rng, points, dev):
@@ -767,9 +898,8 @@ def kernel_phase_3d(points, dev):
     """Each rank-3 kernel against its plain version at the full 3D
     geometry (batch 1: two channels)."""
     import torch
-    from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft
-    from tensorflow_nufft_tpu_torch.kernels import (binning, interp, mode3d,
-                                                    spread)
+    from tensorflow_nufft_tpu_torch.kernels import (binning, fft3d, interp,
+                                                    mode3d, spread)
     from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
     from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
 
@@ -791,7 +921,8 @@ def kernel_phase_3d(points, dev):
     tiles = torch.randn(geom.tiles + (2,) + geom.ext, generator=gen,
                         device=dev)
     modes = torch.randn((1,) + GRID3 + (2,), generator=gen, device=dev)
-    spec = _fft(mode3d.fold_plain(tiles, geom, 1), "forward")
+    spec = fft3d.fft_plain(mode3d.fold_plain(tiles, geom, 1), (1, 2, 3),
+                           "forward")
     log(f"3D bytes: tile array {tiles.numel() * 4:.4e}, fine grid "
         f"{spec.numel() * 8:.4e}, planned windows "
         f"{kw.weights.numel() * 4:.4e} + starts {kw.starts.numel() * 4:.4e}, "
@@ -799,7 +930,6 @@ def kernel_phase_3d(points, dev):
     wrap = wrappers()
     m, n3 = NUM_POINTS3, int(np.prod(GRID3))
     nf3 = int(np.prod(geom.fine_shape))
-    tile_bytes = 4 * tiles.numel()
     cases = {
         "spread3d_unplanned": (
             lambda: wrap["spread3d_unplanned"](values_pl, tb, geom, plan,
@@ -813,11 +943,6 @@ def kernel_phase_3d(points, dev):
             lambda: interp.interp_tiles_plain(tiles, tb, geom, plan,
                                               coords=coords),
             tile_work("interp", False, geom, plan, 2, m, used)),
-        # (bytes, operations): tiles in + grid out, one add per element.
-        "fold3d": (
-            lambda: wrap["fold3d"](tiles, geom, 1),
-            lambda: mode3d.fold_plain(tiles, geom, 1),
-            (tile_bytes + 8 * nf3, tiles.numel())),
         # The n^3 spectrum values it needs in, modes out, 4 multiplies.
         "truncate_deconvolve3d": (
             lambda: wrap["truncate_deconvolve3d"](spec, plan, geom),
@@ -827,15 +952,12 @@ def kernel_phase_3d(points, dev):
             lambda: wrap["amplify_pad3d"](modes, plan, geom),
             lambda: mode3d.amplify_pad_plain(modes, plan),
             (8 * n3 + 4 * sum(GRID3) + 8 * nf3, 4 * n3)),
-        "extend_tiles3d": (
-            lambda: wrap["extend_tiles3d"](spec, geom),
-            lambda: mode3d.extend_plain(spec, geom),
-            (8 * nf3 + tile_bytes, 0)),
     }
     results = {}
     for name, (kernel, plain, work) in cases.items():
         hold(name, kernel, plain, results)
         time_pair(name, kernel, plain, results, work)
+    halo_phase("unbanded 3D headline", geom, 1, tiles, spec, results)
     # The per-slot-window kernels at the unbanded headline geometry, the
     # "mats" route at this geometry (rows 3 and 12 are timed at their
     # main-path size in planned_mats_phase_3d): held, and timed for the
@@ -856,12 +978,10 @@ def kernel_phase_3d(points, dev):
             f"kernel {cuda_ms(kernel):.4f} ms, bound "
             f"{bound(*tile_work(kind, True, geom, plan, 2, m, used))[0]:.4f}"
             f" ms")
-    fine = spec.clone()
-    for name, fn in (("fftn", lambda: torch.fft.fftn(fine, dim=(1, 2, 3))),
-                     ("ifftn", lambda: torch.fft.ifftn(
-                         fine, dim=(1, 2, 3), norm="forward"))):
-        log(f"time torch.fft.{name} [1, 256^3] complex64: "
-            f"{cuda_ms(fn):.4f} ms")
+    # The FFT kernel on the fine grid, both directions (the JSON keeps
+    # the forward one's times).
+    fft_phase("unbanded 3D headline", spec, (1, 2, 3), "backward", {})
+    fft_phase("unbanded 3D headline", spec, (1, 2, 3), "forward", results)
     return results
 
 
@@ -981,6 +1101,15 @@ def large_kernels(rank, pts, plan, dev, results):
         hold(f"{kind}{tag}", kernel, plain, results)
         time_pair(f"{kind}{tag}", kernel, plain, results,
                   tile_work(kind, False, geom, plan, 2, m, used),
+                  plain_reps=2)
+    if rank == 3:
+        # The halo kernels at this geometry (logged; the JSON keeps the
+        # unbanded headline's).
+        fine = torch.complex(*(torch.randn((1,) + geom.fine_shape,
+                                           generator=gen, device=dev)
+                               for _ in range(2)))
+        halo_phase("large 3D tiles", geom, 1, tiles, fine, {}, plain_reps=2)
+        fft_phase("large 3D tiles", fine, (1, 2, 3), "forward", {},
                   plain_reps=2)
 
 
@@ -1144,11 +1273,11 @@ def plain_pipeline(source, points, plan):
     reference pipelines of the 3D and training gates. source: [B, M, 2]
     (type-1) or [B, *grid, 2] (type-2). Runs on the tensors' device (the
     card here), in their dtype."""
-    from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft
-    from tensorflow_nufft_tpu_torch.kernels import (binning, interp, mode3d,
-                                                    spread)
+    from tensorflow_nufft_tpu_torch.kernels import (binning, fft3d, interp,
+                                                    mode3d, spread)
     from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
     geom, binned = bin_for_plan(points, plan)
+    dims = tuple(range(1, plan.rank + 1))
     kw = binning.build_weight_payload(binned, geom, plan)
     tb = binned.tile_bounds
     direction = plan.spec.fft_direction
@@ -1157,9 +1286,11 @@ def plain_pipeline(source, points, plan):
         values = binning.build_values_payload(
             source.movedim(-1, 1).reshape(2 * batch, -1), binned)
         tiles = spread.spread_tiles_plain(values, tb, geom, plan, kw=kw)
-        spec = _fft(mode3d.fold_plain(tiles, geom, batch), direction)
+        spec = fft3d.fft_plain(mode3d.fold_plain(tiles, geom, batch), dims,
+                               direction)
         return mode3d.truncate_deconvolve_plain(spec, plan)
-    fine = _fft(mode3d.amplify_pad_plain(source, plan), direction)
+    fine = fft3d.fft_plain(mode3d.amplify_pad_plain(source, plan), dims,
+                           direction)
     tiles = mode3d.extend_plain(fine, geom)
     chunk_vals = interp.interp_tiles_plain(tiles, tb, geom, plan, kw=kw)
     flat = chunk_vals.transpose(0, 1).reshape(2 * batch, geom.num_slots)
@@ -1352,8 +1483,8 @@ def kernel_phase_binned(op, dev):
     planned type-1."""
     import torch
     from tensorflow_nufft_tpu_torch.fft import planar_fft
-    from tensorflow_nufft_tpu_torch.kernels import (binning, dispatch, interp,
-                                                    mode3d, spread)
+    from tensorflow_nufft_tpu_torch.kernels import (binning, dispatch, fft3d,
+                                                    interp, mode3d, spread)
     geom, binned, plan = op.geom, op.binned, op.plan
     coords, band, tb = op.coords, op.band_info, op.binned.tile_bounds
     m, used = NUM_POINTS3, int(tb[-1]) * geom.chunk
@@ -1369,14 +1500,13 @@ def kernel_phase_binned(op, dev):
     twiddles = planar_fft.dfta_twiddles(plan, geom, dev)
     y = spread.dfta_plain(spread.spread_tiles_plain(
         values[2], tb, geom, plan, coords=coords, band=band), twiddles)
-    spec2 = planar_fft._fft(mode3d.fold_plain(y, geom, 1, axes=2),
-                            "forward", (1, 2)).contiguous()
+    spec2 = fft3d.fft_plain(mode3d.fold_plain(y, geom, 1, axes=2), (1, 2),
+                            "forward").contiguous()
     log(f"3D binned bytes: banded tile array {tiles.numel() * 4:.4e}, y "
         f"{y.numel() * 4:.4e}, coords payload {coords.numel() * 4:.4e}, "
         f"twiddles {twiddles.numel() * 4:.4e}")
     wrap = wrappers()
     n3, nt2, e2 = int(np.prod(GRID3)), geom.tiles[2], geom.ext[2]
-    fine2 = int(np.prod(spec2.shape))
     spread_work = tile_work("spread", False, geom, plan, 2, m, used)
     # The epilogue: per y pair and t2 tile, three E2-long dot products and
     # the xr + xi sum, 7 operations per E2 element.
@@ -1408,11 +1538,6 @@ def kernel_phase_binned(op, dev):
                 twiddles),
             (spread_work[0] - tile_bytes + 4 * y.numel()
              + 4 * twiddles.numel(), spread_work[1] + epi_ops)),
-        # (bytes, operations): y in, grid out, one add per element.
-        "fold2": (
-            functools.partial(wrap["fold2"], y, geom, 1),
-            functools.partial(mode3d.fold_plain, y, geom, 1, axes=2),
-            (4 * y.numel() + 8 * fine2, y.numel())),
         # The n^3 spectrum values it needs in, modes out, 3 multiplies.
         "truncate_deconvolve2": (
             functools.partial(wrap["truncate_deconvolve2"], spec2, plan,
@@ -1425,6 +1550,18 @@ def kernel_phase_binned(op, dev):
     for name, (kernel, plain, work) in cases.items():
         hold(name, kernel, plain, results)
         time_pair(name, kernel, plain, results, work)
+    # The halo kernels at the banded geometry, and fold2 (the fused
+    # route's two-axis fold, whose times the JSON keeps); the JSON keeps
+    # extend_tiles3d's and fold3d's at the unbanded headline (phase 6).
+    fine = torch.complex(*(torch.randn((1,) + geom.fine_shape, generator=gen,
+                                       device=dev) for _ in range(2)))
+    halo = {}
+    halo_phase("banded 3D headline", geom, 1, tiles, fine, halo, y)
+    results["fold2"] = halo["fold2"]
+    # The fused route's two-axis FFT of the folded y.
+    fft_phase("fused route", wrap["fold2"](y, geom, 1), (1, 2), "forward",
+              {})
+    del fine, halo
     extra = {}
     hold("spread3d_banded_split", functools.partial(
         wrap["spread3d_banded_split"], values[4], tb, geom, plan, coords,
@@ -2597,7 +2734,8 @@ def main():
             "replaces": replaces, "launches": phases[phase][name],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": None})
+            "bound_by": res["bound_by"],
+            "library_ms": res.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

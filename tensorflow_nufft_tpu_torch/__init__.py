@@ -1,11 +1,11 @@
 """PyTorch port of tensorflow_nufft_tpu (planar 1D, 2D and 3D
 type-1/type-2 NUFFT).
 
-The spread and interp hot loops, and at 3D the mode stages around cuFFT,
-run as hand-written CUDA kernels on CUDA tensors (``csrc/``, built with
-nvcc at first use) and as their plain PyTorch versions on CPU tensors.
-Everything else (fold, binning, the FFT) is plain torch, mirroring the
-JAX package module for module. Numpy input goes to the CUDA card unless
+The spread and interp hot loops, and at 3D the mode stages and their
+FFT, run as hand-written CUDA kernels on CUDA tensors (``csrc/``, built
+with nvcc at first use) and as their plain PyTorch versions on CPU
+tensors. Everything else (binning, the rank-1 and rank-2 mode stages and
+FFT) is plain torch, mirroring the JAX package module for module. Numpy input goes to the CUDA card unless
 the caller passes ``device=``. ``planar.nufft``, ``planar.interp`` and
 ``planar.spread`` are differentiable in source and points,
 ``PlannedNufft`` in its source.

@@ -1,5 +1,5 @@
 // Rank-3 mode stages for NVIDIA Hopper: the hand-written kernels around
-// cuFFT (torch.fft) of the 3D planar NUFFT.
+// the FFT (csrc/fft3d.cu) of the 3D planar NUFFT.
 //
 // Type-1 post-stage, replacing the Pallas TPU kernels
 //   tensorflow_nufft_tpu/kernels/pallas_dft.py:_pass_a_kernel,
@@ -7,8 +7,8 @@
 // (the periodic overlap-add of the tile halos, the DFT, truncation to the
 // n modes and deconvolution, one axis per pass as matrix products):
 //   fold3d               tiles [*tiles, 2B, *ext] f32 -> complex64 fine
-//                        grid [B, *nf] (re/im interleaved, cuFFT's input)
-//   (torch.fft.fftn / ifftn over the three axes)
+//                        grid [B, *nf] (re/im interleaved, the FFT's input)
+//   (fft_axis over the three axes, csrc/fft3d.cu)
 //   truncate_deconvolve3d  spectrum at the mode slots k mod nf, times
 //                        w0[i] * w1[j] * w2[k] -> planar [B, n0, n1, n2, 2]
 // Type-2 pre-stage, replacing
@@ -18,11 +18,12 @@
 //   amplify_pad3d        planar modes -> complex64 fine grid, the weighted
 //                        mode at a mode slot and 0 elsewhere (every cell
 //                        is written, so there is no memset)
-//   (torch.fft)
+//   (fft_axis)
 //   extend_tiles3d       complex64 fine grid -> [*tiles, 2B, *ext] f32
 //                        with periodic halos
-// The TPU computes the DFT as matrix products only because it has no
-// usable complex FFT; everything else those six kernels do is here.
+// The TPU computes the DFT as matrix products with the fold, padding and
+// weights built in; here the DFT is the FFT of csrc/fft3d.cu, and every
+// other step of those six kernels is here.
 //
 // Two-axis variants (kAxes = 2), the stages after the fused banded
 // spread (csrc/spread.cu, replacing pallas_spread.py:
@@ -33,26 +34,51 @@
 //   fold3d               y [nt0, nt1, 2B, E0, E1, n2] -> complex64
 //                        [B, nf0, nf1, n2]: the overlap-add of axes 0 and
 //                        1 only (axis 2 is one untiled block of n2)
-//   (torch.fft over axes 0 and 1)
+//   (fft_axis over axes 0 and 1)
 //   truncate_deconvolve3d  the mode slots and weights of axes 0 and 1;
 //                        axis 2 is already in mode order and weighted
 //
-// Design. Each kernel is a gather: one thread per output element, with a
-// grid-stride loop, so every element is written once, without atomics,
-// and the results are deterministic. fold3d sums, for each fine cell, the
-// at most 2 x 2 x 2 extended blocks that hold it (its core tile and, on
-// each axis where it lies within `pad` of a tile edge, the neighbouring
-// tile's halo), in a fixed order. Consecutive threads take consecutive
-// elements of the last axis, so reads and writes are coalesced along it.
+// Design of truncate_deconvolve3d and amplify_pad3d: a gather, one
+// thread per output element, with a grid-stride loop, so every element
+// is written once, without atomics, and the results are deterministic.
 //
-// What bounds them on the H100: memory traffic. Each kernel does a few
-// integer operations and at most 8 additions per element; at the 3D
-// headline (128^3 modes, fine 256^3, tiles 16 x 16 x 4 of ext
-// (24, 24, 72), batch 1) fold3d reads the 340 MB tile array and writes the
-// 134 MB grid, extend_tiles3d the reverse, and the truncate/amplify pair
-// moves the 134 MB grid and the 17 MB of modes. The gathers read the
-// halos twice and the layouts are not re-tiled for the TPU-style
-// streaming; making them reach the bandwidth bound is later work.
+// Design of the halo kernels, extend_tiles3d and fold3d (and fold3d with
+// kAxes = 2). Both move memory and do at most 8 additions a cell, so
+// what bounds them on the H100 is bytes: at the 3D headline (fine 256^3,
+// 1024 tiles of ext (24, 24, 72), batch 1) the 340 MB tile array and the
+// 134 MB grid, 0.1415 ms at 3.35 TB/s. A block owns a range of rows of
+// the flat row space (tile, batch element, axis 0, axis 1): extended
+// rows (e0, e1) for extend_tiles3d, core rows (u0, u1) for fold3d, and
+// serves both channels (re 2b, im 2b + 1) of its batch element. Its
+// threads are lanes x rows (kernels/mode3d.py:halo_launch): each lane
+// takes kVec = 4 consecutive cells of a row's axis 2 (1 where the tile
+// or halo is not a multiple of 4), each row of threads one row, and the
+// block steps over `iters` rows per thread. The row coordinates are
+// decoded with 32-bit divisions once per thread and then carried as the
+// row advances; per row, the source and destination offsets are a few
+// multiply-adds and a periodic wrap by one compare. No per-element
+// division or modulo is left.
+//   extend_tiles3d reads a row's ext2 complex cells as float4 pairs
+//   (four cells, 32 bytes a lane) and stores their real parts to channel
+//   2b and imaginary parts to 2b + 1 as float4, with the evict-first
+//   hint, so that the grid stays in L2 for the halo re-reads (the
+//   extended blocks are 2.53x the grid): the flat row order runs a
+//   tile's rows together and its axis-2 neighbours next, its axis-1
+//   neighbours nt2 tiles later. A quad never straddles the axis-2 wrap
+//   (tile2 and pad are multiples of 4 when kVec = 4), so the wrap is
+//   one compare per quad.
+//   fold3d loads, for each quad of a core row, the at most 2 x 2 x 2
+//   extended blocks that hold it (core first on each axis: the row's
+//   axis-0 and axis-1 blocks are fixed per row, the axis-2 neighbour per
+//   quad, uniform across it since pad and tile2 are multiples of 4) from
+//   both channel planes as float4, and sums them in the order of the
+//   design it replaced (re = 0, then __fadd_rn over (i, j, q) nested),
+//   so its output is that design's bit for bit. It writes the four
+//   complex cells as two float4. With kAxes = 2 axis 2 is one untiled
+//   block with no halo. (Its loads take no cache hint: evict-first loads
+//   were 18-24% slower on an H100; PERF.md section 6.)
+// Every element is written once by one thread: no atomics, and both
+// kernels repeat bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
@@ -60,9 +86,12 @@ namespace {
 // Integer parameters, in this order (kernels/_build.py:mode_params).
 // kAxes: the leading axes that are tiled and transformed (3, or 2 for the
 // fused route, whose axis 2 has nt2 = 1, tile2 = nf2 = n2 and no halo).
+// kVec .. kBlocks: the halo kernels' launch (kernels/mode3d.py:
+// halo_launch; 0 for the other kernels).
 enum ModeParam {
   kBatch, kNf0, kNf1, kNf2, kN0, kN1, kN2, kNt0, kNt1, kNt2, kTile0,
-  kTile1, kTile2, kPad, kAxes, kNumModeParams
+  kTile1, kTile2, kPad, kAxes, kVec, kLanes, kRows, kIters, kBlocks,
+  kNumModeParams
 };
 
 struct Grid3 {
@@ -114,8 +143,154 @@ __device__ __forceinline__ int mode_of(int x, int n, int nf) {
   return -1;
 }
 
-__global__ void fold3d_kernel(const float* __restrict__ tiles,
-                              float2* __restrict__ fine, Grid3 g) {
+// The halo kernels' launch (kernels/mode3d.py:halo_launch).
+struct Halo {
+  int vec;     // cells of axis 2 a lane moves at once (4 or 1)
+  int lanes;   // threads along axis 2 (blockDim.x)
+  int rows;    // rows a block takes at once (blockDim.y)
+  int iters;   // row steps of a block
+  int blocks;  // gridDim.x
+};
+
+Halo halo_from(const int* ip) {
+  return Halo{ip[kVec], ip[kLanes], ip[kRows], ip[kIters], ip[kBlocks]};
+}
+
+// A row of the flat row space [nt0, nt1, nt2, batch, r0, r1] (r = e for
+// extend_tiles3d, u for fold3d), decoded once and then carried.
+struct Row {
+  int t0, t1, t2, b, r0, r1;
+};
+
+__device__ __forceinline__ Row row_at(int row, const Grid3& g, int n0,
+                                      int n1) {
+  Row r;
+  r.r1 = row % n1;
+  row /= n1;
+  r.r0 = row % n0;
+  row /= n0;
+  r.b = row % g.batch;
+  row /= g.batch;
+  r.t2 = row % g.nt[2];
+  row /= g.nt[2];
+  r.t1 = row % g.nt[1];
+  r.t0 = row / g.nt[1];
+  return r;
+}
+
+__device__ __forceinline__ void advance(Row& r, int step, const Grid3& g,
+                                        int n0, int n1) {
+  r.r1 += step;
+  while (r.r1 >= n1) {
+    r.r1 -= n1;
+    if (++r.r0 < n0) continue;
+    r.r0 = 0;
+    if (++r.b < g.batch) continue;
+    r.b = 0;
+    if (++r.t2 < g.nt[2]) continue;
+    r.t2 = 0;
+    if (++r.t1 < g.nt[1]) continue;
+    r.t1 = 0;
+    ++r.t0;
+  }
+}
+
+// x mod n for x in [-n, 2n): the periodic wrap of a halo cell.
+__device__ __forceinline__ int wrap(int x, int n) {
+  return x < 0 ? x + n : (x >= n ? x - n : x);
+}
+
+// The first row of this thread and the end of its block's rows.
+__device__ __forceinline__ int first_row(const Halo& h) {
+  return (int)((long long)blockIdx.x * h.rows * h.iters) + threadIdx.y;
+}
+
+__device__ __forceinline__ int end_row(const Halo& h, int total) {
+  const long long end = (long long)(blockIdx.x + 1) * h.rows * h.iters;
+  return end < total ? (int)end : total;
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(256)
+    extend_tiles3d_kernel(const float2* __restrict__ fine,
+                          float* __restrict__ tiles, Grid3 g, Halo h) {
+  const int e0n = g.tile[0] + 2 * g.pad, e1n = g.tile[1] + 2 * g.pad;
+  const int e2n = g.tile[2] + 2 * g.pad;
+  const int total = g.nt[0] * g.nt[1] * g.nt[2] * g.batch * e0n * e1n;
+  const long long block = (long long)e0n * e1n * e2n;
+  const int quads = e2n / kVec;
+  const int end = end_row(h, total);
+  int row = first_row(h);
+  if (row >= end) return;
+  Row r = row_at(row, g, e0n, e1n);
+  for (; row < end; row += h.rows, advance(r, h.rows, g, e0n, e1n)) {
+    const int x0 = wrap(r.t0 * g.tile[0] + r.r0 - g.pad, g.nf[0]);
+    const int x1 = wrap(r.t1 * g.tile[1] + r.r1 - g.pad, g.nf[1]);
+    const float2* src =
+        fine + (((long long)r.b * g.nf[0] + x0) * g.nf[1] + x1) * g.nf[2];
+    const int tile = (r.t0 * g.nt[1] + r.t1) * g.nt[2] + r.t2;
+    float* re = tiles + (((long long)tile * 2 * g.batch + 2 * r.b) * e0n +
+                         r.r0) * e1n * e2n + (long long)r.r1 * e2n;
+    float* im = re + block;
+    const int x2 = r.t2 * g.tile[2] - g.pad;
+    for (int q = threadIdx.x; q < quads; q += h.lanes) {
+      const int e2 = q * kVec;
+      const float2* s = src + wrap(x2 + e2, g.nf[2]);
+      if constexpr (kVec == 4) {
+        const float4 a = reinterpret_cast<const float4*>(s)[0];
+        const float4 c = reinterpret_cast<const float4*>(s)[1];
+        __stcs(reinterpret_cast<float4*>(re + e2),
+               make_float4(a.x, a.z, c.x, c.z));
+        __stcs(reinterpret_cast<float4*>(im + e2),
+               make_float4(a.y, a.w, c.y, c.w));
+      } else {
+        const float2 a = *s;
+        __stcs(re + e2, a.x);
+        __stcs(im + e2, a.y);
+      }
+    }
+  }
+}
+
+// Per axis, the blocks that hold core cell u of tile t: the tile itself
+// (extended index u + pad) and, within pad of an edge, the neighbour
+// whose halo covers it. Returns how many (1 or 2); a second entry that
+// is not used repeats the first.
+__device__ __forceinline__ int holders(int u, int t, int tile, int pad,
+                                       int nt, int* ts, int* es) {
+  ts[0] = ts[1] = t;
+  es[0] = es[1] = u + pad;
+  if (u < pad) {  // right halo of the previous tile
+    ts[1] = t == 0 ? nt - 1 : t - 1;
+    es[1] = u + tile + pad;
+    return 2;
+  }
+  if (u >= tile - pad) {  // left halo of the next
+    ts[1] = t == nt - 1 ? 0 : t + 1;
+    es[1] = u - tile + pad;
+    return 2;
+  }
+  return 1;
+}
+
+template <int kVec>
+__device__ __forceinline__ void add_cells(float (&acc)[kVec],
+                                          const float* p) {
+  if constexpr (kVec == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    acc[0] = __fadd_rn(acc[0], v.x);
+    acc[1] = __fadd_rn(acc[1], v.y);
+    acc[2] = __fadd_rn(acc[2], v.z);
+    acc[3] = __fadd_rn(acc[3], v.w);
+  } else {
+    acc[0] = __fadd_rn(acc[0], *p);
+  }
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(256)
+    fold3d_kernel(const float* __restrict__ tiles,
+                  float2* __restrict__ fine, Grid3 g, Halo h) {
   int ext[3], pad[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -123,54 +298,73 @@ __global__ void fold3d_kernel(const float* __restrict__ tiles,
     ext[d] = g.tile[d] + 2 * pad[d];
   }
   const long long block = (long long)ext[0] * ext[1] * ext[2];
-  const int b2 = 2 * g.batch;
-  const long long total =
-      (long long)g.batch * g.nf[0] * g.nf[1] * g.nf[2];
-  for (long long idx = first_index(); idx < total; idx += stride()) {
-    long long rem = idx;
-    int x[3];
+  const long long tstride = 2LL * g.batch * block;  // one tile's channels
+  const int total =
+      g.nt[0] * g.nt[1] * g.nt[2] * g.batch * g.tile[0] * g.tile[1];
+  const int quads = g.tile[2] / kVec;
+  const int end = end_row(h, total);
+  int row = first_row(h);
+  if (row >= end) return;
+  Row r = row_at(row, g, g.tile[0], g.tile[1]);
+  for (; row < end;
+       row += h.rows, advance(r, h.rows, g, g.tile[0], g.tile[1])) {
+    int t0s[2], e0s[2], t1s[2], e1s[2];
+    const int n0 = holders(r.r0, r.t0, g.tile[0], pad[0], g.nt[0], t0s, e0s);
+    const int n1 = holders(r.r1, r.t1, g.tile[1], pad[1], g.nt[1], t1s, e1s);
+    // The row's offset in block (i, j), channel 2b, axis-2 tile 0.
+    long long at[2][2];
 #pragma unroll
-    for (int d = 2; d >= 0; --d) {
-      x[d] = (int)(rem % g.nf[d]);
-      rem /= g.nf[d];
-    }
-    const int b = (int)rem;
-    // Per axis, the blocks that hold x: its core tile, and the
-    // neighbour whose halo covers it when x is within pad of an edge.
-    int ct[3][2], ce[3][2], cn[3];
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int t = x[d] / g.tile[d];
-      const int u = x[d] - t * g.tile[d];
-      ct[d][0] = t;
-      ce[d][0] = u + pad[d];
-      cn[d] = 1;
-      if (u < pad[d]) {  // right halo of the previous tile
-        ct[d][1] = (t + g.nt[d] - 1) % g.nt[d];
-        ce[d][1] = u + g.tile[d] + pad[d];
-        cn[d] = 2;
-      } else if (u >= g.tile[d] - pad[d]) {  // left halo of the next
-        ct[d][1] = (t + 1) % g.nt[d];
-        ce[d][1] = u - g.tile[d] + pad[d];
-        cn[d] = 2;
+      for (int j = 0; j < 2; ++j) {
+        at[i][j] = (long long)((t0s[i] * g.nt[1] + t1s[j]) * g.nt[2]) *
+                       tstride +
+                   2LL * r.b * block +
+                   ((long long)e0s[i] * ext[1] + e1s[j]) * ext[2];
       }
     }
-    float re = 0.0f, im = 0.0f;
-    for (int i = 0; i < cn[0]; ++i) {
-      for (int j = 0; j < cn[1]; ++j) {
-        for (int q = 0; q < cn[2]; ++q) {
-          const long long t =
-              ((long long)ct[0][i] * g.nt[1] + ct[1][j]) * g.nt[2] +
-              ct[2][q];
-          const long long off =
-              (t * b2 + 2 * b) * block +
-              ((long long)ce[0][i] * ext[1] + ce[1][j]) * ext[2] + ce[2][q];
-          re = __fadd_rn(re, tiles[off]);
-          im = __fadd_rn(im, tiles[off + block]);
+    float2* out = fine + (((long long)r.b * g.nf[0] + r.t0 * g.tile[0] +
+                           r.r0) * g.nf[1] + r.t1 * g.tile[1] + r.r1) *
+                             g.nf[2] + r.t2 * g.tile[2];
+    const int t2l = r.t2 == 0 ? g.nt[2] - 1 : r.t2 - 1;
+    const int t2r = r.t2 == g.nt[2] - 1 ? 0 : r.t2 + 1;
+    for (int q = threadIdx.x; q < quads; q += h.lanes) {
+      const int u2 = q * kVec;
+      long long at2[2];
+      int n2 = 1;
+      at2[0] = r.t2 * tstride + u2 + pad[2];
+      if (u2 < pad[2]) {
+        at2[1] = t2l * tstride + u2 + g.tile[2] + pad[2];
+        n2 = 2;
+      } else if (u2 >= g.tile[2] - pad[2]) {
+        at2[1] = t2r * tstride + u2 - g.tile[2] + pad[2];
+        n2 = 2;
+      }
+      float re[kVec], im[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) re[k] = im[k] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            if (i < n0 && j < n1 && k < n2) {
+              const float* p = tiles + at[i][j] + at2[k];
+              add_cells<kVec>(re, p);
+              add_cells<kVec>(im, p + block);
+            }
+          }
         }
       }
+      if constexpr (kVec == 4) {
+        float4* o = reinterpret_cast<float4*>(out + u2);
+        o[0] = make_float4(re[0], im[0], re[1], im[1]);
+        o[1] = make_float4(re[2], im[2], re[3], im[3]);
+      } else {
+        out[u2] = make_float2(re[0], im[0]);
+      }
     }
-    fine[idx] = make_float2(re, im);
   }
 }
 
@@ -228,39 +422,6 @@ __global__ void amplify_pad3d_kernel(const float2* __restrict__ modes,
   }
 }
 
-__global__ void extend_tiles3d_kernel(const float* __restrict__ fine,
-                                      float* __restrict__ tiles, Grid3 g) {
-  int ext[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) ext[d] = g.tile[d] + 2 * g.pad;
-  const int b2 = 2 * g.batch;
-  const long long total = (long long)g.nt[0] * g.nt[1] * g.nt[2] * b2 *
-                          ext[0] * ext[1] * ext[2];
-  for (long long idx = first_index(); idx < total; idx += stride()) {
-    long long rem = idx;
-    int e[3], t[3];
-#pragma unroll
-    for (int d = 2; d >= 0; --d) {
-      e[d] = (int)(rem % ext[d]);
-      rem /= ext[d];
-    }
-    const int c = (int)(rem % b2);
-    rem /= b2;
-#pragma unroll
-    for (int d = 2; d >= 0; --d) {
-      t[d] = (int)(rem % g.nt[d]);
-      rem /= g.nt[d];
-    }
-    long long fidx = c / 2;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int x = (t[d] * g.tile[d] + e[d] - g.pad + g.nf[d]) % g.nf[d];
-      fidx = fidx * g.nf[d] + x;
-    }
-    tiles[idx] = fine[2 * fidx + (c & 1)];
-  }
-}
-
 }  // namespace
 
 // fold3d: tiles [*tiles, 2B, *ext] float32 -> fine [B, *nf] complex64
@@ -268,9 +429,15 @@ __global__ void extend_tiles3d_kernel(const float* __restrict__ fine,
 extern "C" int tnt_fold3d(const void* tiles, void* fine, const int* ip,
                           void* stream) {
   const Grid3 g = grid_from(ip);
-  const long long total = (long long)g.batch * g.nf[0] * g.nf[1] * g.nf[2];
-  fold3d_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)tiles, (float2*)fine, g);
+  const Halo h = halo_from(ip);
+  const dim3 threads(h.lanes, h.rows);
+  if (h.vec == 4) {
+    fold3d_kernel<4><<<h.blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)tiles, (float2*)fine, g, h);
+  } else {
+    fold3d_kernel<1><<<h.blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)tiles, (float2*)fine, g, h);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -309,11 +476,16 @@ extern "C" int tnt_amplify_pad3d(const void* modes, const void* w0,
 extern "C" int tnt_extend_tiles3d(const void* fine, void* tiles,
                                   const int* ip, void* stream) {
   const Grid3 g = grid_from(ip);
-  const long long total = (long long)g.nt[0] * g.nt[1] * g.nt[2] *
-                          (2 * g.batch) * (g.tile[0] + 2 * g.pad) *
-                          (g.tile[1] + 2 * g.pad) * (g.tile[2] + 2 * g.pad);
-  extend_tiles3d_kernel<<<blocks_for(total), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)fine, (float*)tiles, g);
+  const Halo h = halo_from(ip);
+  const dim3 threads(h.lanes, h.rows);
+  if (h.vec == 4) {
+    extend_tiles3d_kernel<4><<<h.blocks, threads, 0,
+                               (cudaStream_t)stream>>>(
+        (const float2*)fine, (float*)tiles, g, h);
+  } else {
+    extend_tiles3d_kernel<1><<<h.blocks, threads, 0,
+                               (cudaStream_t)stream>>>(
+        (const float2*)fine, (float*)tiles, g, h);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,1 +1,2 @@
-"""Mode stages of the planar NUFFT (cuFFT through ``torch.fft``)."""
+"""Mode stages of the planar NUFFT (the FFT kernel at rank 3 on the card,
+``torch.fft`` elsewhere)."""

@@ -4,20 +4,22 @@
 Counterpart of ``tensorflow_nufft_tpu.fft.planar_fft``
 (``dft_truncate_deconvolve_tiled``, ``amplify_pad_dft_tiled``) and
 ``fft.fft_ops``. The TPU path computes these stages as pruned matmul
-DFTs because its backend has no complex FFT; here the DFT is cuFFT (or
-pocketfft on the CPU) through ``torch.fft``, on the full fine grid.
+DFTs because its backend has no complex FFT; here the DFT is an FFT on
+the full fine grid: at rank 3 on the card the hand-written kernel of
+``kernels.fft3d``, elsewhere its plain version (``torch.fft``).
 
 ``spread_dft_fused`` is the planned type-1 of ``kernels.pallas_dft.
 spread_dft_fused``: at the rank-3 binned level with a band, where the
 ``FUSED_DFTA`` gate takes it, the fused route, the banded spread whose
 epilogue contracts axis 2 with the twiddles of ``dfta_twiddles``
 (``kernels.dispatch.spread_dfta``), then the two-axis fold, FFT and
-truncation of ``kernels.mode3d``; elsewhere the spread and the staged
-mode stage above.
+truncation of ``kernels.mode3d`` and ``kernels.fft3d``; elsewhere the
+spread and the staged mode stage above.
 
 The steps around the FFT dispatch as the JAX rank-3 stages do
 (``planar_fft.py:143-150``, ``:244-250``): at rank 3 a CUDA tensor goes
-to the hand-written kernels of ``kernels.mode3d``; a CPU tensor, and
+to the hand-written kernels of ``kernels.mode3d`` and ``kernels.fft3d``;
+a CPU tensor, and
 ranks 1 and 2 (which the JAX package keeps in XLA), to their plain
 PyTorch versions.
 
@@ -36,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tensorflow_nufft_tpu_torch.kernels import dispatch, mode3d
+from tensorflow_nufft_tpu_torch.kernels import dispatch, fft3d, mode3d
 from tensorflow_nufft_tpu_torch.kernels.binning import (
     BandInfo, BinnedPoints, KernelWeights, TileGeometry)
 from tensorflow_nufft_tpu_torch.plan.plan import make_plan
@@ -53,10 +55,12 @@ FUSED_DFTA = False
 
 
 def _fft(x: torch.Tensor, fft_direction: str, dims=None) -> torch.Tensor:
+    """The DFT over ``dims`` (all but the batch axis by default): the
+    FFT kernel at rank 3 on the card, ``torch.fft`` elsewhere."""
     dims = tuple(range(1, x.ndim)) if dims is None else dims
-    if fft_direction == "forward":
-        return torch.fft.fftn(x, dim=dims)
-    return torch.fft.ifftn(x, dim=dims, norm="forward")   # unnormalized
+    if mode3d.on_kernels(x, x.ndim - 1):
+        return fft3d.fft3d_cuda(x, dims, fft_direction)
+    return fft3d.fft_plain(x, dims, fft_direction)
 
 
 def dft_truncate_deconvolve_tiled(tiles: torch.Tensor, plan,
@@ -139,9 +143,7 @@ def dft_truncate_deconvolve_fused(y: torch.Tensor, plan,
     [batch, *grid_shape, 2]."""
     direction = plan.spec.fft_direction
     if y.is_cuda:
-        # cuFFT over the two leading axes returns a strided layout.
-        spec = _fft(mode3d.fold2_cuda(y, geom, batch), direction,
-                    (1, 2)).contiguous()
+        spec = _fft(mode3d.fold2_cuda(y, geom, batch), direction, (1, 2))
         return mode3d.truncate_deconvolve2_cuda(spec, plan, geom)
     spec = _fft(mode3d.fold_plain(y, geom, batch, axes=2), direction,
                 (1, 2))

@@ -92,6 +92,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32p, ptr]
         fn.restype = ctypes.c_int
+    # FFT along one axis: (in, out, twiddles, params, stream).
+    lib.tnt_fft_axis.argtypes = [ptr, ptr, ptr, i32p, ptr]
+    lib.tnt_fft_axis.restype = ctypes.c_int
     lib.tnt_error_string.argtypes = [ctypes.c_int]
     lib.tnt_error_string.restype = ctypes.c_char_p
 
@@ -194,13 +197,16 @@ def kernel_params(geom, plan, batch2: int, group: int, threads: int,
             (ctypes.c_float * len(floats))(*floats))
 
 
-def mode_params(geom, grid_shape, batch: int, axes: int = 3):
+def mode_params(geom, grid_shape, batch: int, axes: int = 3,
+                launch=(0, 0, 0, 0, 0)):
     """The int parameter array of a rank-3 mode-stage launch, in the
     order of ``ModeParam`` in ``csrc/mode3d.cu``: ``axes`` leading axes
     tiled and transformed (2 for the fused route, whose ``geom`` then
-    describes [nt0, nt1, 1] tiles of (t0, t1, n2))."""
+    describes [nt0, nt1, 1] tiles of (t0, t1, n2)), and the halo
+    kernels' ``launch`` (``mode3d.halo_launch``)."""
     ints = ((batch,) + tuple(geom.fine_shape) + tuple(grid_shape)
-            + tuple(geom.tiles) + tuple(geom.tile) + (geom.pad, axes))
+            + tuple(geom.tiles) + tuple(geom.tile) + (geom.pad, axes)
+            + tuple(launch))
     return (ctypes.c_int * len(ints))(*ints)
 
 

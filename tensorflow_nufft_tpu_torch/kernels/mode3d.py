@@ -3,9 +3,10 @@
 
 Counterpart of the rank-3 ``tensorflow_nufft_tpu.kernels.pallas_dft``
 pass chains. The TPU computes the mode-stage DFT as matrix products
-because it has no usable complex FFT; here the DFT is cuFFT through
-``torch.fft`` (``fft.planar_fft``), and the four other steps are
-hand-written Hopper kernels of ``csrc/mode3d.cu``, one per entry point:
+with the halo fold, padding and weights built in; here the DFT is the
+hand-written FFT of ``kernels.fft3d`` (``fft.planar_fft``), and the four
+other steps are hand-written Hopper kernels of ``csrc/mode3d.cu``, one
+per entry point:
 
 - ``fold3d_cuda`` and ``truncate_deconvolve3d_cuda`` replace the type-1
   passes ``_pass_a_kernel``, ``_pass_b_kernel`` and ``_pass_c_kernel``;
@@ -16,7 +17,7 @@ hand-written Hopper kernels of ``csrc/mode3d.cu``, one per entry point:
   the fused type-1 route (``pallas_dft._run_passes_bc``), after the
   banded spread whose epilogue contracted axis 2 (``spread.
   spread_dfta_cuda``): they fold and truncate axes 0 and 1 of
-  y [nt0, nt1, B2, E0, E1, n2] around a two-axis cuFFT.
+  y [nt0, nt1, B2, E0, E1, n2] around a two-axis FFT.
 
 The kernels take rank 3 and float32. Each has a plain PyTorch version of
 the same function (any rank, float32 or float64): ``fold_plain``,
@@ -27,7 +28,10 @@ the JAX package also keeps out of Pallas),
 and ``chip_smoke.py`` holds each kernel to its plain version on the card.
 Each CUDA entry point counts its launches in its ``launches`` attribute.
 What bounds the kernels (memory traffic) is in the source note of
-``csrc/mode3d.cu``.
+``csrc/mode3d.cu``. The halo kernels (``extend_tiles3d_cuda``,
+``fold3d_cuda``, ``fold2_cuda``) take rows of the tiles in blocks of
+``halo_launch``'s shape, computed here so that a CPU test can sweep
+every geometry.
 """
 
 from __future__ import annotations
@@ -159,6 +163,53 @@ def _run(name: str, *args) -> None:
     _build.check(rc, f"{name} launch")
 
 
+# The halo kernels' blocks (csrc/mode3d.cu, __launch_bounds__(256)): at
+# most HALO_THREADS threads, each stepping over up to HALO_ITERS rows,
+# and at least HALO_BLOCKS blocks where the rows allow it (the H100's 132
+# SMs, 8 blocks of 256 threads each).
+HALO_THREADS = 256
+HALO_ITERS = 2
+HALO_BLOCKS = 132 * 8
+
+
+def halo_launch(geom: TileGeometry, batch: int, kind: str, axes: int = 3,
+                aligned: bool = True):
+    """(vec, lanes, rows, iters, blocks) of an ``extend_tiles3d``
+    (``kind`` "extend") or ``fold3d`` ("fold") launch on ``geom`` with
+    ``batch`` batch elements and ``axes`` tiled axes (2: the fused
+    route's y, axis 2 one untiled block of ``geom.tile[2]`` with no
+    halo).
+
+    A block is ``lanes`` x ``rows`` threads. Each lane moves ``vec``
+    consecutive cells of axis 2 (4 where the axis-2 tile and halo are
+    multiples of 4 and both tensors are 16-byte ``aligned``, so that a
+    quad is one float4 and never straddles the periodic wrap; else 1),
+    each row of threads one row of the flat row space (tile, batch
+    element, axis 0, axis 1): the extended rows for "extend", the core
+    rows for "fold". A block takes ``rows * iters`` consecutive rows;
+    ``blocks`` cover them all."""
+    pad2 = geom.pad if axes == 3 else 0
+    t0, t1, t2 = geom.tile
+    vec = 4 if aligned and t2 % 4 == 0 and pad2 % 4 == 0 else 1
+    if kind == "extend":
+        width = t2 + 2 * pad2
+        per_tile = (t0 + 2 * geom.pad) * (t1 + 2 * geom.pad)
+    else:
+        width, per_tile = t2, t0 * t1
+    lanes = min(width // vec, HALO_THREADS)
+    rows = HALO_THREADS // lanes
+    total = geom.num_tiles * batch * per_tile
+    if total >= 2 ** 31:
+        raise ValueError(f"{total} rows of tiles: the halo kernels index "
+                         f"rows in 32 bits")
+    iters = max(1, min(HALO_ITERS, total // (rows * HALO_BLOCKS)))
+    return vec, lanes, rows, iters, -(-total // (rows * iters))
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _rank3(kernel: str, geom: TileGeometry) -> None:
     if geom.rank != 3:
         raise NotImplementedError(f"the {kernel} kernel is rank 3 only")
@@ -181,8 +232,9 @@ def fold3d_cuda(tiles: torch.Tensor, geom: TileGeometry, batch: int
                         geom.tiles + (2 * batch,) + geom.ext)
     fine = torch.empty((batch,) + geom.fine_shape, dtype=torch.complex64,
                        device=tiles.device)
+    launch = halo_launch(geom, batch, "fold", 3, _aligned(tiles, fine))
     _run("tnt_fold3d", tiles, fine,
-         _build.mode_params(geom, (1, 1, 1), batch))
+         _build.mode_params(geom, (1, 1, 1), batch, 3, launch))
     fold3d_cuda.launches += 1
     return fine
 
@@ -231,8 +283,9 @@ def extend_tiles3d_cuda(fine: torch.Tensor, geom: TileGeometry
                         torch.complex64, (batch,) + geom.fine_shape)
     tiles = torch.empty(geom.tiles + (2 * batch,) + geom.ext,
                         dtype=torch.float32, device=fine.device)
+    launch = halo_launch(geom, batch, "extend", 3, _aligned(fine, tiles))
     _run("tnt_extend_tiles3d", fine, tiles,
-         _build.mode_params(geom, (1, 1, 1), batch))
+         _build.mode_params(geom, (1, 1, 1), batch, 3, launch))
     extend_tiles3d_cuda.launches += 1
     return tiles
 
@@ -256,7 +309,9 @@ def fold2_cuda(y: torch.Tensor, geom: TileGeometry, batch: int
     g2 = _modes2_geometry(geom, n2)
     fine = torch.empty((batch,) + g2.fine_shape, dtype=torch.complex64,
                        device=y.device)
-    _run("tnt_fold3d", y, fine, _build.mode_params(g2, (1, 1, 1), batch, 2))
+    launch = halo_launch(g2, batch, "fold", 2, _aligned(y, fine))
+    _run("tnt_fold3d", y, fine,
+         _build.mode_params(g2, (1, 1, 1), batch, 2, launch))
     fold2_cuda.launches += 1
     return fine
 

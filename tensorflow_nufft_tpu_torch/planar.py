@@ -9,7 +9,7 @@ The entry points run on the CUDA card unless the caller asks for the
 CPU: tensors stay on their device, and numpy arrays or lists go to the
 card unless ``device=`` says otherwise (see ``utils.dtypes.
 entry_tensors``). On a CUDA tensor the spread/interp stages, and at rank
-3 the mode stages around cuFFT, run the hand-written Hopper kernels
+3 the mode stages and their FFT, run the hand-written Hopper kernels
 (float32 only); on a CPU tensor their plain PyTorch versions.
 
 Gradients: ``nufft``, ``interp`` and ``spread`` are differentiable in

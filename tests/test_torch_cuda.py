@@ -17,7 +17,8 @@ import torch
 import tensorflow_nufft_tpu_torch as tnt
 from tensorflow_nufft_tpu_torch.fft import planar_fft
 from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft, dfta_twiddles
-from tensorflow_nufft_tpu_torch.kernels import binning, interp, mode3d, spread
+from tensorflow_nufft_tpu_torch.kernels import (
+    binning, fft3d, interp, mode3d, spread)
 from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
 from tensorflow_nufft_tpu_torch.plan.plan import (
     PlanSpec, fit_horner_coeffs, make_plan)
@@ -305,19 +306,45 @@ def test_large_tile_kernels_are_deterministic(dev, grid, m):
                                                                   *args))
 
 
-@pytest.mark.parametrize("grid,direction", [((16, 16, 64), "forward"),
-                                            ((32, 32, 64), "backward")])
-@pytest.mark.parametrize("batch", (1, 2))
-def test_mode3d_kernels_match_plain(dev, grid, direction, batch):
+# Mode-stage geometries: (grid, direction, banded, tile_pref): 2 x 2 x 2
+# and 4 x 4 x 2 tiles; the binned level's banded tiles, 1 x 2 x 1 of ext
+# (136, 24, 40) and 2 x 2 x 1; one tile on every axis (each halo is the
+# tile's own other edge); 3 x 1 x 1 tiles of ext (16, 28, 38), whose
+# axis 2 is no multiple of 4 (the halo kernels' one-cell lanes).
+MODE3D_CASES = [
+    ((16, 16, 64), "forward", False, 0),
+    ((32, 32, 64), "backward", False, 0),
+    ((64, 16, 16), "forward", True, 0),
+    ((128, 16, 16), "backward", True, 0),
+    ((16, 16, 16), "forward", False, 32),
+    ((12, 10, 14), "backward", False, 0),
+]
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data is not 16-byte aligned (the
+    halo kernels then take one cell a lane)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("grid,direction,banded,tile_pref", MODE3D_CASES)
+@pytest.mark.parametrize("batch", (1, 2, 3))
+def test_mode3d_kernels_match_plain(dev, grid, direction, banded, tile_pref,
+                                    batch):
     plan = make_plan(PlanSpec("type_1", direction, 3, grid, "complex64",
                               1e-6, 1))
-    geom = binning.choose_geometry(plan.fine_shape, plan.width, 3000)
+    geom = binning.choose_geometry(plan.fine_shape, plan.width, 3000,
+                                   tile_pref=tile_pref, banded=banded)
     rng = np.random.default_rng(batch)
     tiles = torch.from_numpy(rng.standard_normal(
         geom.tiles + (2 * batch,) + geom.ext).astype(np.float32)).to(dev)
     fine = mode3d.fold3d_cuda(tiles, geom, batch)
     want = mode3d.fold_plain(tiles, geom, batch)
     _close(torch.view_as_real(fine), torch.view_as_real(want))
+    assert torch.equal(fine, mode3d.fold3d_cuda(tiles, geom, batch))
+    assert torch.equal(fine, mode3d.fold3d_cuda(_unaligned(tiles), geom,
+                                                batch))
     spec = _fft(want, direction)
     _close(mode3d.truncate_deconvolve3d_cuda(spec, plan, geom),
            mode3d.truncate_deconvolve_plain(spec, plan))
@@ -326,8 +353,42 @@ def test_mode3d_kernels_match_plain(dev, grid, direction, batch):
     got = mode3d.amplify_pad3d_cuda(modes, plan, geom)
     _close(torch.view_as_real(got),
            torch.view_as_real(mode3d.amplify_pad_plain(modes, plan)))
-    assert torch.equal(mode3d.extend_tiles3d_cuda(spec, geom),
-                       mode3d.extend_plain(spec, geom))
+    ext = mode3d.extend_tiles3d_cuda(spec, geom)
+    assert torch.equal(ext, mode3d.extend_plain(spec, geom))
+    assert torch.equal(ext, mode3d.extend_tiles3d_cuda(spec, geom))
+    assert torch.equal(ext, mode3d.extend_tiles3d_cuda(_unaligned(spec),
+                                                       geom))
+    # The fused route's y [nt0, nt1, 2B, E0, E1, n2] (axis 2 untiled).
+    y = torch.from_numpy(rng.standard_normal(
+        geom.tiles[:2] + (2 * batch,) + geom.ext[:2] + (grid[2],)).astype(
+            np.float32)).to(dev)
+    fine2 = mode3d.fold2_cuda(y, geom, batch)
+    _close(torch.view_as_real(fine2),
+           torch.view_as_real(mode3d.fold_plain(y, geom, batch, axes=2)))
+    assert torch.equal(fine2, mode3d.fold2_cuda(y, geom, batch))
+
+
+# (shape, dims): the 3D headline's fine grid, the large-tile cell's
+# (radix 5), batch 3 with lines of 2, 3 and 5 factors, and the fused
+# route's two-axis transform of [B, nf0, nf1, n2].
+FFT_CASES = [((1, 256, 256, 256), (1, 2, 3)),
+             ((1, 320, 320, 320), (1, 2, 3)),
+             ((3, 90, 36, 50), (1, 2, 3)),
+             ((2, 256, 256, 128), (1, 2))]
+
+
+@pytest.mark.parametrize("shape,dims", FFT_CASES)
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+def test_fft3d_kernel_matches_torch_fft(dev, shape, dims, direction):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.complex(*(torch.randn(shape, generator=gen, device=dev)
+                        for _ in range(2)))
+    before = fft3d.fft3d_cuda.launches
+    got = fft3d.fft3d_cuda(x, dims, direction)
+    assert fft3d.fft3d_cuda.launches == before + len(dims)
+    want = fft3d.fft_plain(x, dims, direction)
+    _close(torch.view_as_real(got), torch.view_as_real(want))
+    assert torch.equal(got, fft3d.fft3d_cuda(x, dims, direction))
 
 
 @pytest.mark.parametrize("transform_type", ("type_1", "type_2"))

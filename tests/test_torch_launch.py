@@ -1,4 +1,5 @@
-"""Launch planning of the port's spread and interp kernels (pure Python).
+"""Launch planning of the port's spread, interp and halo kernels (pure
+Python).
 
 Every geometry ``choose_geometry`` returns at ranks 2 and 3 must launch:
 a block owns an axis-0 slab of a tile (spread) or stages its rows in
@@ -12,7 +13,8 @@ held a whole tile, and the headlines.
 import numpy as np
 import pytest
 
-from tensorflow_nufft_tpu_torch.kernels import _build, binning, interp, spread
+from tensorflow_nufft_tpu_torch.kernels import (_build, binning, interp,
+                                                mode3d, spread)
 from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
 
 SIZES = ([(2, n) for n in (121, 150, 180, 256, 300, 500)]
@@ -98,3 +100,48 @@ def test_rank1_launch_plans_take_every_geometry(nf, width, b2):
     assert smem == bufs * group * slab * 4 <= _build.SMEM_LIMIT
     # A block takes up to LINE_UNITS units of slots in turn.
     assert 1 <= interp.line_units(geom) <= interp.LINE_UNITS
+
+
+# Rank 3: the halo kernels (extend_tiles3d, fold3d, and fold3d on the
+# fused route's y, axis 2 one untiled block of its n modes), at every
+# geometry choose_geometry returns at the sizes above, unbanded and
+# banded, for batch 1 to 8, with both tensors 16-byte aligned or not.
+# The kernels use no shared memory.
+@pytest.mark.parametrize("batch", (1, 2, 3, 8))
+@pytest.mark.parametrize("banded", (False, True))
+@pytest.mark.parametrize("tol", (1e-6, 1e-7))
+@pytest.mark.parametrize("n", [n for rank, n in SIZES if rank == 3])
+def test_halo_launch_plans_take_every_geometry(n, tol, banded, batch):
+    plan = make_plan(PlanSpec("type_1", "forward", 3, (n,) * 3,
+                              "complex64", tol, 1))
+    geom = binning.choose_geometry(plan.fine_shape, plan.width, POINTS[3],
+                                   banded=banded)
+    for kind, g, axes in (("extend", geom, 3), ("fold", geom, 3),
+                          ("fold", mode3d._modes2_geometry(geom, n), 2)):
+        pad2 = g.pad if axes == 3 else 0
+        t0, t1, t2 = g.tile
+        if kind == "extend":
+            width, rows_per_tile = t2 + 2 * pad2, g.ext[0] * g.ext[1]
+        else:
+            width, rows_per_tile = t2, t0 * t1
+        for aligned in (True, False):
+            vec, lanes, rows, iters, blocks = mode3d.halo_launch(
+                g, batch, kind, axes, aligned)
+            # Four cells a lane only where they are one aligned float4
+            # that never straddles the periodic wrap of axis 2.
+            assert vec in (1, 4) and width % vec == 0
+            if vec == 4:
+                assert aligned and t2 % 4 == 0 and pad2 % 4 == 0
+            # The lanes cover a row, in turns beyond HALO_THREADS lanes,
+            # with none idle, and the block fits its thread limit.
+            assert lanes * vec <= width
+            assert lanes * vec >= min(width, mode3d.HALO_THREADS * vec)
+            assert rows >= 1
+            assert lanes * rows <= mode3d.HALO_THREADS <= 1024
+            # The blocks cover every row of the tiles once, in row steps
+            # of at most HALO_ITERS, and fill the card where rows allow.
+            total = g.num_tiles * batch * rows_per_tile
+            assert total < 2 ** 31
+            assert 1 <= iters <= mode3d.HALO_ITERS
+            assert (blocks - 1) * rows * iters < total <= blocks * rows * iters
+            assert iters == 1 or blocks >= mode3d.HALO_BLOCKS

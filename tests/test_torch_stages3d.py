@@ -25,7 +25,7 @@ from tensorflow_nufft_tpu.kernels import pallas_dft
 from tensorflow_nufft_tpu.plan import plan as jplan
 from tensorflow_nufft_tpu_torch.fft import planar_fft as tfft
 from tensorflow_nufft_tpu_torch.kernels import binning as tb
-from tensorflow_nufft_tpu_torch.kernels import mode3d
+from tensorflow_nufft_tpu_torch.kernels import fft3d, mode3d
 from tensorflow_nufft_tpu_torch.plan import plan as tplan
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -96,7 +96,8 @@ def test_stages_on_cpu_are_the_plain_versions_3d():
     tiles = torch.from_numpy(_tiles(tgeom, 1, 6))
     modes = torch.from_numpy(_modes(1, 7))
     counters = (mode3d.fold3d_cuda, mode3d.truncate_deconvolve3d_cuda,
-                mode3d.amplify_pad3d_cuda, mode3d.extend_tiles3d_cuda)
+                mode3d.amplify_pad3d_cuda, mode3d.extend_tiles3d_cuda,
+                fft3d.fft3d_cuda)
     before = [c.launches for c in counters]
     got1 = tfft.dft_truncate_deconvolve_tiled(tiles, tp, tgeom, 1)
     spec = torch.fft.ifftn(mode3d.fold_plain(tiles, tgeom, 1),
@@ -126,3 +127,45 @@ def test_mode3d_cuda_wrappers_refuse_cpu_tensors():
         mode3d.fold3d_cuda(torch.from_numpy(_tiles(tgeom, 1, 9)), tgeom, 1)
     with pytest.raises(ValueError, match="CUDA"):
         mode3d.amplify_pad3d_cuda(torch.from_numpy(_modes(1, 9)), tp, tgeom)
+
+
+# Halo geometries (grid, banded, tile_pref, tiles): the binned level's
+# banded tiles, one and two on axis 0, and one tile on every axis (each
+# halo is the tile's own other edge).
+HALO_CASES = [((64, 16, 16), True, 0, (1, 2, 1)),
+              ((128, 16, 16), True, 0, (2, 2, 1)),
+              ((16, 16, 16), False, 32, (1, 1, 1))]
+
+
+@pytest.mark.parametrize("grid,banded,tile_pref,tiles", HALO_CASES)
+@pytest.mark.parametrize("batch", (1, 3))
+def test_halo_plain_versions_match_jax(grid, banded, tile_pref, tiles,
+                                       batch):
+    """extend_plain and fold_plain (the yardsticks of the halo kernels)
+    against the JAX package's extend_tiles and overlap_add on the same
+    channels (2b the real part, 2b + 1 the imaginary): equal, as a copy
+    and the same per-axis additions in the same order are."""
+    kw = dict(transform_type="type_1", fft_direction="forward", rank=3,
+              grid_shape=grid, dtype_name="complex64", tol=1e-6,
+              points_range=1)
+    jp, tp = jplan.make_plan(jplan.PlanSpec(**kw)), tplan.make_plan(
+        tplan.PlanSpec(**kw))
+    geoms = [mod.choose_geometry(p.fine_shape, p.width, M,
+                                 tile_pref=tile_pref, banded=banded)
+             for mod, p in ((tb, tp), (jb, jp))]
+    tgeom, jgeom = geoms
+    assert tgeom.tiles == tiles and jgeom.tiles == tiles
+    rng = np.random.default_rng(20 + batch)
+    planes = rng.standard_normal((batch, 2) + tgeom.fine_shape).astype(
+        np.float32)
+    fine = torch.complex(*torch.from_numpy(planes).unbind(1))
+    np.testing.assert_array_equal(
+        mode3d.extend_plain(fine, tgeom).numpy(),
+        np.asarray(jb.extend_tiles(jnp.asarray(planes.reshape(
+            (2 * batch,) + tgeom.fine_shape)), jgeom)))
+    blocks = _tiles(tgeom, batch, 30 + batch)
+    want = np.asarray(jb.overlap_add(jnp.asarray(blocks), jgeom)).reshape(
+        (batch, 2) + tgeom.fine_shape)
+    got = mode3d.fold_plain(torch.from_numpy(blocks), tgeom, batch)
+    np.testing.assert_array_equal(got.real.numpy(), want[:, 0])
+    np.testing.assert_array_equal(got.imag.numpy(), want[:, 1])
