@@ -42,20 +42,27 @@ Phases:
    ``from_slots`` of the point-order applies, to 1e-5 of the peak; times
    of ``normal`` against the composed pair.
 6. 3D kernels: at the unbanded 3D geometry, the unplanned spread and
-   interp, fold3d, truncate_deconvolve3d, amplify_pad3d and
-   extend_tiles3d against their plain versions on the card, with the
-   same 1e-5 bound; the per-slot-window kernels there (the planned
-   route at the "mats" level) held and timed for comparison. The halo
-   kernels (extend_tiles3d, fold3d) also repeated bit for bit and timed
-   beside the one PyTorch call that computes the same function (the
-   library time: torch.take of the grid's float32 view for extend, a
-   zero fill and index_add_ for fold, with int64 indices built outside
-   the timed call; the port never calls them). The FFT kernel (fft3d,
-   the DFT of the 3D mode stage, one launch per axis) against torch.fft
-   on the 256^3 grid in both directions, repeated bit for bit and timed
+   interp, fold3d and extend_tiles3d against their plain versions on
+   the card, with the same 1e-5 bound; the per-slot-window kernels there
+   (the planned route at the "mats" level) held and timed for
+   comparison. The halo kernels (extend_tiles3d, fold3d) also repeated
+   bit for bit and timed beside the one PyTorch call that computes the
+   same function (the library time: torch.take of the grid's float32
+   view for extend, a zero fill and index_add_ for fold, with int64
+   indices built outside the timed call; the port never calls them).
+   The mode stages on the FFT kernel (csrc/fft3d.cu: three pruned
+   passes, the amplification and padding in the first load of
+   modes_to_fine, the truncation and deconvolution in the last store of
+   fine_to_modes) at batch 1 and 3 against their plain versions
+   (amplify_pad_plain or truncate_deconvolve_plain around torch.fft: the
+   cuFFT route) within 2e-6 of the peak, repeated bit for bit, timed
+   beside them with two bounds (the stage's input and output once; the
+   bytes its passes move). The FFT kernel's full-grid mode (fft3d_cuda,
+   on no path of the port) against torch.fft on the 256^3 grid in both
+   directions, within 2e-6 of the peak, repeated bit for bit and timed
    beside it (torch.fft is both its plain version and its library
    call); again on the fused route's [1, 256, 256, 128] (two axes) and
-   the large-tile cell's 320^3 grid.
+   the large-tile cell's 320^3 grid, with the stages there.
 7. 3D end to end: zeroes the counters, runs PlannedNufft type-1 (the
    binned level: the banded spread and the staged mode stage) and its
    adjoint() (the banded interp), then planar.nufft type-1 and type-2,
@@ -71,8 +78,9 @@ Phases:
 8. 3D binned kernels: at the binned geometry, the banded spread at B2 =
    2 (row 7), at 4 and with slot-order values (row 8), the banded interp
    (row 13, its chunk- and point-order outputs), the fused spread with
-   its axis-2 epilogue (row 9) and the two-axis fold and truncation after
-   it, each against its plain version (1e-5 of the peak) and timed; the
+   its axis-2 epilogue (row 9) against its plain version (1e-5 of the
+   peak) and the pruned passes of axes 1 and 0 after its two-axis fold
+   (fine_to_modes2) as in phase 6, each timed; the
    banded spread and interp repeated bit for bit; extend_tiles3d, fold3d
    and fold2 at this geometry as in phase 6 (held, repeated, timed with
    their library calls).
@@ -107,8 +115,14 @@ Phases:
    kernel argument of one 308-wide tile in 2D), below 4x that
    pipeline's own errors, the census rule of phase 7 applied to both.
    Then the spread and interp kernels held to their plain versions at
-   both geometries and timed, and the halo kernels at the 3D one as in
-   phase 6.
+   both geometries and timed, and the halo kernels, the mode stages and
+   the full-grid FFT at the 3D one as in phase 6.
+13b. Long fine axes ("3d_long"): 3D modes (8, 8, 4096) and (4096, 8, 8)
+   on 65,536 seeded points, tol 1e-6 (fine grids (16, 16, 8192) and
+   (8192, 16, 16): a line longer than one block's shared memory, which
+   the FFT kernel splits in two launches), unplanned planar.nufft
+   type-1 and type-2 and PlannedNufft type-1 and its adjoint, with
+   launch counts, gated as phase 7.
 14. Training kernels: the derivative interp (phi' on one axis) on each
    axis at the 2D headline and on axis 0 at the 3D headline, and the
    unplanned spread at 6, 16 and 32 channels (2D) and 6 (3D), against
@@ -161,6 +175,9 @@ CUDA-event median, the device busy time per call from torch.profiler
 (the sum of the device activities of 20 calls, / 20), the idle share
 1 - busy / event time, and the largest device items.
 
+Every main path's launch count is read with the rank-3 calls of
+torch.fft on the card: the run fails if one ran (a fallback).
+
 Before the JSON, each rewritten spread and interp kernel's time is
 printed beside the block-per-tile kernel's that PERF.md records, and
 each rank-1 kernel's beside that of the two-kernel rank-1 design it
@@ -193,6 +210,8 @@ GEOMETRY3 = dict(fine_shape=(256, 256, 256), tile=(16, 16, 64),
 TOL = 1e-6
 SEED = 42
 KERNEL_RTOL = 1e-5
+# The FFT kernel against torch.fft (both float32 FFTs), of the peak.
+FFT_RTOL = 2e-6
 WARMUP = 3
 REPS = 25
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside
@@ -362,8 +381,8 @@ KERNELS = {
     # with slot-order values or B2 > 2), and row 9 (the fused axis-2
     # epilogue, followed by passes B and C) where its gate takes it.
     # The planned type-1 takes the staged route by default (banded spread,
-    # fold3d, cuFFT, truncation); "3d_fused" runs the fused route with the
-    # gate turned on.
+    # fold3d, the pruned FFT passes with the truncation); "3d_fused" runs
+    # the fused route with the gate turned on.
     "spread3d_banded": ("spread.spread_banded_cuda", "spread.cu",
                         f"{_PS}:693", "3d"),
     "spread3d_banded_split": ("spread.spread_banded_cuda", "spread.cu",
@@ -372,8 +391,10 @@ KERNELS = {
                       "3d_fused"),
     "fold2": ("mode3d.fold2_cuda", "mode3d.cu", f"{_PD}:362,384",
               "3d_fused"),
-    "truncate_deconvolve2": ("mode3d.truncate_deconvolve2_cuda",
-                             "mode3d.cu", f"{_PD}:362,384", "3d_fused"),
+    # The fused route's passes of axes 1 and 0, the truncation and the
+    # weights of axes 0 and 1 in the last store.
+    "fine_to_modes2": ("fft3d.fine_to_modes_cuda", "fft3d.cu",
+                       f"{_PD}:362,384", "3d_fused"),
     "interp3d_banded": ("interp.interp_banded_cuda", "interp.cu",
                         f"{_PI}:281", "3d"),
     "spread3d_unplanned": ("spread.spread_unplanned_cuda", "spread.cu",
@@ -381,16 +402,17 @@ KERNELS = {
     "interp3d_unplanned": ("interp.interp_unplanned_cuda", "interp.cu",
                            f"{_PI}:218", "3d"),
     "fold3d": ("mode3d.fold3d_cuda", "mode3d.cu", f"{_PD}:346,362,384", "3d"),
-    "truncate_deconvolve3d": ("mode3d.truncate_deconvolve3d_cuda",
-                              "mode3d.cu", f"{_PD}:346,362,384", "3d"),
-    "amplify_pad3d": ("mode3d.amplify_pad3d_cuda", "mode3d.cu",
-                      f"{_PD}:222,246,261", "3d"),
     "extend_tiles3d": ("mode3d.extend_tiles3d_cuda", "mode3d.cu",
                        f"{_PD}:222,246,261", "3d"),
-    # The DFT arithmetic of the six pass kernels (their twiddle-matrix
-    # products): a mixed-radix FFT, one launch per axis.
-    "fft3d": ("fft3d.fft3d_cuda", "fft3d.cu",
-              f"{_PD}:222,246,261,346,362,384", "3d"),
+    # The six pass kernels' DFTs (their twiddle-matrix products): a
+    # mixed-radix FFT, one pruned launch per axis (two for a line longer
+    # than shared memory), with the amplification and padding in the
+    # type-2 chain's first load and the truncation and deconvolution in
+    # the type-1 chain's last store.
+    "modes_to_fine": ("fft3d.modes_to_fine_cuda", "fft3d.cu",
+                      f"{_PD}:222,246,261", "3d"),
+    "fine_to_modes": ("fft3d.fine_to_modes_cuda", "fft3d.cu",
+                      f"{_PD}:346,362,384", "3d"),
     # Training. The JAX plan spreads 2 * rank + B2 > 8 channels with its
     # split-payload kernels: the resident one at the 2D headline for B2 =
     # 6 (a batch-3 type-1 loss), the per-tile one for B2 = 16 (the source
@@ -487,30 +509,29 @@ PHASE_KERNELS = {
            "interp_unplanned"),
     "2d_slots": ("spread_planned", "interp_planned"),
     "3d": ("spread3d_banded", "spread3d_unplanned", "interp3d_banded",
-           "interp3d_unplanned", "fold3d", "truncate_deconvolve3d",
-           "amplify_pad3d", "extend_tiles3d", "fft3d"),
+           "interp3d_unplanned", "fold3d", "fine_to_modes", "modes_to_fine",
+           "extend_tiles3d"),
     "3d_slots": ("spread3d_banded_split", "interp3d_banded", "fold3d",
-                 "truncate_deconvolve3d", "amplify_pad3d", "extend_tiles3d",
-                 "fft3d"),
-    "3d_fused": ("spread3d_dfta", "fold2", "truncate_deconvolve2",
-                 "interp3d_banded", "amplify_pad3d", "extend_tiles3d",
-                 "fft3d"),
+                 "fine_to_modes", "modes_to_fine", "extend_tiles3d"),
+    "3d_fused": ("spread3d_dfta", "fold2", "fine_to_modes2",
+                 "interp3d_banded", "modes_to_fine", "extend_tiles3d"),
+    "3d_long": ("spread3d_unplanned", "interp3d_unplanned", "fold3d",
+                "fine_to_modes", "modes_to_fine", "extend_tiles3d"),
     "train2d": ("spread_split", "interp_unplanned"),
     "train2d_planned": ("spread_planned", "interp_planned"),
     "train2d_type1": ("spread_split_resident", "interp_unplanned"),
     "train3d": ("spread3d_unplanned", "interp3d_unplanned", "fold3d",
-                "truncate_deconvolve3d", "amplify_pad3d", "extend_tiles3d",
-                "fft3d"),
+                "fine_to_modes", "modes_to_fine", "extend_tiles3d"),
     "spread_only_2d": ("spread_unplanned", "interp_unplanned",
                        "interp_deriv"),
     "spread_only_3d": ("spread3d_unplanned", "interp3d_unplanned",
                        "extend_tiles3d", "fold3d", "interp3d_deriv"),
     "planned3d_mats": ("spread3d_planned_mats", "interp3d_planned_mats",
-                       "fold3d", "truncate_deconvolve3d", "amplify_pad3d",
-                       "extend_tiles3d", "fft3d"),
+                       "fold3d", "fine_to_modes", "modes_to_fine",
+                       "extend_tiles3d"),
     "large3d": ("spread3d_unplanned_large", "interp3d_unplanned_large",
-                "fold3d", "truncate_deconvolve3d", "amplify_pad3d",
-                "extend_tiles3d", "fft3d"),
+                "fold3d", "fine_to_modes", "modes_to_fine",
+                "extend_tiles3d"),
     "large2d": ("spread2d_unplanned_large", "interp2d_unplanned_large"),
     "1d": ("spread_unplanned_1d", "interp_unplanned_1d"),
     "1d_slots": ("spread_split_1d", "interp_unplanned_1d"),
@@ -539,20 +560,50 @@ def wrappers():
     return out
 
 
+# Calls of the FFT's plain version (torch.fft) on a rank-3 grid on the
+# card since the last reset_launches(): the 3D mode stages run the FFT
+# kernel there, so any such call is a fallback.
+_CARD_FFT_PLAIN = [0]
+
+
+def count_card_fft_plain():
+    """Wraps ``fft3d.fft_plain`` (which the mode stages reach through
+    their module) so that each call on a rank-3 grid on the card is
+    counted in ``_CARD_FFT_PLAIN``."""
+    from tensorflow_nufft_tpu_torch.kernels import fft3d
+    plain = fft3d.fft_plain
+    if getattr(plain, "counted", False):
+        return
+
+    def counted(x, dims, fft_direction):
+        if x.is_cuda and x.ndim == 4:
+            _CARD_FFT_PLAIN[0] += 1
+        return plain(x, dims, fft_direction)
+    counted.counted = True
+    fft3d.fft_plain = counted
+
+
 def reset_launches():
+    count_card_fft_plain()
+    _CARD_FFT_PLAIN[0] = 0
     for fn in wrappers().values():
         fn.launches = 0
 
 
 def read_launches(phase):
     """Launch counts of the kernels the main-path ``phase`` must run;
-    fails if one was launched no time."""
+    fails if one was launched no time, or if torch.fft ran on a rank-3
+    grid on the card."""
     wrap = wrappers()
     launches = {name: wrap[name].launches for name in PHASE_KERNELS[phase]}
-    log(f"{phase} main-path launches: {launches}")
+    log(f"{phase} main-path launches: {launches}; rank-3 torch.fft calls "
+        f"on the card: {_CARD_FFT_PLAIN[0]}")
     missing = [name for name, n in launches.items() if n < 1]
     if missing:
         raise RuntimeError(f"{phase} main path did not launch {missing}")
+    if _CARD_FFT_PLAIN[0]:
+        raise RuntimeError(f"{phase} main path ran torch.fft on a rank-3 "
+                           f"grid on the card")
     return launches
 
 
@@ -564,11 +615,13 @@ def step_launches():
     return counts
 
 
-def hold(name, kernel, plain, results, launches=1):
-    """Runs ``kernel`` once (its launch count must rise by ``launches``)
-    and holds it to ``plain``; records the max abs error."""
+def hold(name, kernel, plain, results, launches=1, rtol=KERNEL_RTOL,
+         counter=None):
+    """Runs ``kernel`` once (the launch count of its wrapper, or of
+    ``counter``, must rise by ``launches``) and holds it to ``plain``
+    within ``rtol`` of the peak; records the max abs error."""
     import torch
-    fn = wrappers()[name]
+    fn = counter or wrappers()[name]
     before = fn.launches
     got = kernel()
     torch.cuda.synchronize()
@@ -580,10 +633,10 @@ def hold(name, kernel, plain, results, launches=1):
     err = float((got - ref).abs().max())
     peak = float(ref.abs().max())
     log(f"kernel {name}: max|kernel - plain| {err:.3e} (peak {peak:.3e}, "
-        f"bound {KERNEL_RTOL * peak:.3e})")
-    if not (np.isfinite(err) and err <= KERNEL_RTOL * peak):
+        f"bound {rtol * peak:.3e})")
+    if not (np.isfinite(err) and err <= rtol * peak):
         raise RuntimeError(f"{name} disagrees with its plain version: "
-                           f"{err:.3e} > {KERNEL_RTOL:g} * {peak:.3e}")
+                           f"{err:.3e} > {rtol:g} * {peak:.3e}")
     res = results.setdefault(name, {"max_abs_err": 0.0})
     res["max_abs_err"] = max(res["max_abs_err"], err)
 
@@ -689,25 +742,110 @@ def halo_phase(label, geom, batch, tiles, fine, results, y=None,
         torch.cuda.empty_cache()
 
 
-def fft_phase(label, x, dims, direction, results, plain_reps=5):
-    """fft3d over ``dims`` of the complex64 grid ``x``: held to its plain
+def fft_phase(label, x, dims, direction, plain_reps=5):
+    """The FFT kernel's full-grid mode (fft3d_cuda, on no path of the
+    port) over ``dims`` of the complex64 grid ``x``: held to its plain
     version (torch.fft, which is also the one library call of the same
-    function, cuFFT), repeated bit for bit, and timed into ``results``
-    with the bound: the grid read and written once, 5 N log2 N flops per
-    transform of N cells."""
+    function, cuFFT) within 2e-6 of the peak, repeated bit for bit, and
+    timed beside it with the bound: the grid read and written once, 5 N
+    log2 N flops per transform of N cells."""
     import torch
     from tensorflow_nufft_tpu_torch.kernels import fft3d
-    kernel = functools.partial(wrappers()["fft3d"], x, dims, direction)
+    kernel = functools.partial(fft3d.fft3d_cuda, x, dims, direction)
     plain = functools.partial(fft3d.fft_plain, x, dims, direction)
-    hold("fft3d", kernel, plain, results, launches=len(dims))
+    splits = sum(fft3d.split_of(x.shape[d]) is not None for d in dims)
+    results = {}
+    hold("fft3d", kernel, plain, results, launches=len(dims) + splits,
+         rtol=FFT_RTOL, counter=fft3d.fft3d_cuda)
     if not torch.equal(kernel(), kernel()):
         raise RuntimeError(f"fft3d at {label} is not bit-repeatable")
     cells = int(np.prod([x.shape[d] for d in dims]))
     work = (16 * x.numel(), 5 * x.numel() * np.log2(cells))
     time_pair("fft3d", kernel, plain, results, work, plain_reps, plain,
-              f"fft3d {label} {tuple(x.shape)} dims {tuple(dims)} "
-              f"{direction}")
+              f"fft3d (full grid) {label} {tuple(x.shape)} dims "
+              f"{tuple(dims)} {direction}")
     torch.cuda.empty_cache()
+
+
+def stage_passes(plan, batch, kind):
+    """(outer, n, inner, cells in, cells out) of each pruned pass of a
+    mode stage: ``kind`` "to_fine" (modes_to_fine), "to_modes"
+    (fine_to_modes) or "to_modes2" (the fused route's two axes)."""
+    (n0, n1, n2), (f0, f1, f2) = plan.grid_shape, plan.fine_shape
+    if kind == "to_fine":
+        return [(batch * n0 * n1, f2, 1, n2, f2), (batch * n0, f1, f2, n1, f1),
+                (batch, f0, f1 * f2, n0, f0)]
+    out = [(batch * f0, f1, n2, f1, n1), (batch, f0, n1 * n2, f0, n0)]
+    if kind == "to_modes":
+        out.insert(0, (batch * f0 * f1, f2, 1, f2, n2))
+    return out
+
+
+def stage_work(plan, batch, kind):
+    """(bytes, operations) of a mode stage as a function: its input read
+    once and its output written once (and the weights), 5 n log2 n flops
+    a line of each pass; and the bytes its pruned passes move (each
+    pass's input and output once)."""
+    passes = stage_passes(plan, batch, kind)
+    first, last = passes[0], passes[-1]
+    nbytes = 8 * (first[0] * first[3] * first[2]
+                  + last[0] * last[4] * last[2]) + 4 * sum(plan.grid_shape)
+    ops = sum(5 * o * i * n * np.log2(n) for o, n, i, _, _ in passes)
+    moved = sum(8 * o * i * (a + b) for o, _, i, a, b in passes)
+    return (nbytes, ops), moved
+
+
+def stage_phase(label, plan, batch, results, gen, kinds=None,
+                plain_reps=REPS):
+    """The pruned mode stages (modes_to_fine, fine_to_modes and the
+    fused route's two-axis fine_to_modes) at ``plan`` and ``batch`` on
+    seeded inputs: each held to its plain version (amplify_pad_plain
+    then torch.fft; torch.fft then truncate_deconvolve_plain: the cuFFT
+    route) within 2e-6 of the peak, repeated bit for bit, and timed
+    beside it (``plain_reps`` runs) with its bound and the bound of the
+    bytes its passes move, into ``results``."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import fft3d, mode3d
+    direction = plan.spec.fft_direction
+    grid, fine = tuple(plan.grid_shape), tuple(plan.fine_shape)
+    modes = torch.randn((batch,) + grid + (2,), generator=gen,
+                        device=gen.device)
+    x = torch.complex(*(torch.randn((batch,) + fine, generator=gen,
+                                    device=gen.device) for _ in range(2)))
+    x2 = x[..., :grid[2]].contiguous()
+    cases = {
+        "modes_to_fine": (
+            "to_fine", functools.partial(fft3d.modes_to_fine_cuda, modes,
+                                         plan),
+            lambda: fft3d.fft_plain(mode3d.amplify_pad_plain(modes, plan),
+                                    (1, 2, 3), direction)),
+        "fine_to_modes": (
+            "to_modes", functools.partial(fft3d.fine_to_modes_cuda, x, plan),
+            lambda: mode3d.truncate_deconvolve_plain(
+                fft3d.fft_plain(x, (1, 2, 3), direction), plan)),
+        "fine_to_modes2": (
+            "to_modes2", functools.partial(fft3d.fine_to_modes_cuda, x2,
+                                           plan, 2),
+            lambda: mode3d.truncate_deconvolve_plain(
+                fft3d.fft_plain(x2, (1, 2), direction), plan, axes=2))}
+    for name, (kind, kernel, plain) in cases.items():
+        if kinds is not None and name not in kinds:
+            continue
+        passes = stage_passes(plan, batch, kind)
+        launches = sum(len(fft3d.axis_launches(o, n, i)) for o, n, i, _, _
+                       in passes)
+        hold(name, kernel, plain, results, launches=launches, rtol=FFT_RTOL)
+        first = kernel()
+        if not torch.equal(first, kernel()):
+            raise RuntimeError(f"{name} at {label} is not bit-repeatable")
+        del first
+        work, moved = stage_work(plan, batch, kind)
+        time_pair(name, kernel, plain, results, work, plain_reps,
+                  label=f"{name} {label} batch {batch}")
+        log(f"{name} {label} batch {batch}: {launches} launches; its "
+            f"passes move {moved:.4e} B (bound "
+            f"{moved / PEAK_BYTES_PER_S * 1e3:.4f} ms)")
+        torch.cuda.empty_cache()
 
 
 def kernel_phase(rng, points, dev):
@@ -920,7 +1058,6 @@ def kernel_phase_3d(points, dev):
         torch.randn((2, NUM_POINTS3), generator=gen, device=dev), binned)
     tiles = torch.randn(geom.tiles + (2,) + geom.ext, generator=gen,
                         device=dev)
-    modes = torch.randn((1,) + GRID3 + (2,), generator=gen, device=dev)
     spec = fft3d.fft_plain(mode3d.fold_plain(tiles, geom, 1), (1, 2, 3),
                            "forward")
     log(f"3D bytes: tile array {tiles.numel() * 4:.4e}, fine grid "
@@ -928,8 +1065,7 @@ def kernel_phase_3d(points, dev):
         f"{kw.weights.numel() * 4:.4e} + starts {kw.starts.numel() * 4:.4e}, "
         f"coords payload {coords.numel() * 4:.4e}")
     wrap = wrappers()
-    m, n3 = NUM_POINTS3, int(np.prod(GRID3))
-    nf3 = int(np.prod(geom.fine_shape))
+    m = NUM_POINTS3
     cases = {
         "spread3d_unplanned": (
             lambda: wrap["spread3d_unplanned"](values_pl, tb, geom, plan,
@@ -943,15 +1079,6 @@ def kernel_phase_3d(points, dev):
             lambda: interp.interp_tiles_plain(tiles, tb, geom, plan,
                                               coords=coords),
             tile_work("interp", False, geom, plan, 2, m, used)),
-        # The n^3 spectrum values it needs in, modes out, 4 multiplies.
-        "truncate_deconvolve3d": (
-            lambda: wrap["truncate_deconvolve3d"](spec, plan, geom),
-            lambda: mode3d.truncate_deconvolve_plain(spec, plan),
-            (16 * n3 + 4 * sum(GRID3), 4 * n3)),
-        "amplify_pad3d": (
-            lambda: wrap["amplify_pad3d"](modes, plan, geom),
-            lambda: mode3d.amplify_pad_plain(modes, plan),
-            (8 * n3 + 4 * sum(GRID3) + 8 * nf3, 4 * n3)),
     }
     results = {}
     for name, (kernel, plain, work) in cases.items():
@@ -978,10 +1105,15 @@ def kernel_phase_3d(points, dev):
             f"kernel {cuda_ms(kernel):.4f} ms, bound "
             f"{bound(*tile_work(kind, True, geom, plan, 2, m, used))[0]:.4f}"
             f" ms")
-    # The FFT kernel on the fine grid, both directions (the JSON keeps
-    # the forward one's times).
-    fft_phase("unbanded 3D headline", spec, (1, 2, 3), "backward", {})
-    fft_phase("unbanded 3D headline", spec, (1, 2, 3), "forward", results)
+    # The pruned mode stages (the JSON keeps batch 1's), then the FFT
+    # kernel's full-grid mode on the fine grid beside torch.fft, both
+    # directions.
+    stage_phase("3D headline", plan, 1, results, gen,
+                ("modes_to_fine", "fine_to_modes"))
+    stage_phase("3D headline", plan, 3, {}, gen,
+                ("modes_to_fine", "fine_to_modes"))
+    fft_phase("unbanded 3D headline", spec, (1, 2, 3), "backward")
+    fft_phase("unbanded 3D headline", spec, (1, 2, 3), "forward")
     return results
 
 
@@ -1109,7 +1241,13 @@ def large_kernels(rank, pts, plan, dev, results):
                                            generator=gen, device=dev)
                                for _ in range(2)))
         halo_phase("large 3D tiles", geom, 1, tiles, fine, {}, plain_reps=2)
-        fft_phase("large 3D tiles", fine, (1, 2, 3), "forward", {},
+        del fine
+        stage_phase("large 3D tiles", plan, 1, {}, gen,
+                    ("modes_to_fine", "fine_to_modes"))
+        fine = torch.complex(*(torch.randn((1,) + geom.fine_shape,
+                                           generator=gen, device=dev)
+                               for _ in range(2)))
+        fft_phase("large 3D tiles", fine, (1, 2, 3), "forward",
                   plain_reps=2)
 
 
@@ -1266,6 +1404,95 @@ def large_tiles_phase(points3, points, dev):
                                               "complex64", TOL, 1)), dev,
                   results)
     return phases, results
+
+
+# Modes whose fine grid has an axis longer than one block's shared
+# memory (40 bytes a cell: 5,811 cells), on axis 2 and on axis 0.
+LONG3 = ((8, 8, 4096), (4096, 8, 8))
+LONG_POINTS3 = 65_536
+
+
+def long_axis_phase(dev):
+    """3D transforms whose fine grid ((16, 16, 8192), (8192, 16, 16)) has
+    a line longer than shared memory, which the FFT kernel takes in two
+    launches (the four-step split): at each of LONG3 with 65,536 seeded
+    uniform points, tol 1e-6, the unplanned planar.nufft type-1 and
+    type-2 and PlannedNufft type-1 and its adjoint, with launch counting
+    (no torch.fft on the card); gated as phase 7 (err_total against
+    complex128 NUDFTs on 4096-element subsets, err_impl against the
+    float64 plain pipeline with the floor_f32 rule)."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch.planar import from_planar, to_planar
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    rng = np.random.default_rng(SEED + 14)
+    m = LONG_POINTS3
+    points = rng.uniform(-np.pi, np.pi, (m, 3)).astype(np.float32)
+    z = (rng.standard_normal(m) + 1j * rng.standard_normal(m)).astype(
+        np.complex64)
+    pts, strengths = (torch.from_numpy(points).to(dev),
+                      to_planar(z).to(dev))
+    total = {}
+    for grid in LONG3:
+        modes = (rng.standard_normal(grid)
+                 + 1j * rng.standard_normal(grid)).astype(np.complex64)
+        modes_p = to_planar(modes).to(dev)
+        reset_launches()
+        op = tnt.PlannedNufft(pts, grid, transform_type="type_1", tol=TOL)
+        outs = {"t1_planned": op(strengths[None])[0],
+                "t2_planned": op.adjoint()(modes_p[None])[0],
+                "t1_unplanned": tnt.planar.nufft(
+                    strengths, pts, grid_shape=grid, transform_type="type_1",
+                    tol=TOL),
+                "t2_unplanned": tnt.planar.nufft(
+                    modes_p, pts, transform_type="type_2",
+                    fft_direction="backward", tol=TOL)}
+        torch.cuda.synchronize()
+        for name, n in read_launches("3d_long").items():
+            total[name] = total.get(name, 0) + n
+        log(f"3d_long {grid}: fine {op.plan.fine_shape}, level {op.level}, "
+            f"tiles {op.geom.tiles} of ext {op.geom.ext}")
+        sub = np.random.default_rng(SEED + 15)
+        idx = {"t1": torch.from_numpy(np.sort(sub.choice(
+                   int(np.prod(grid)), SUBSET, replace=False))).to(dev),
+               "t2": torch.from_numpy(np.sort(sub.choice(
+                   m, SUBSET, replace=False))).to(dev)}
+        exact = {"t1": exact_type1_subset(points, z, idx["t1"], dev,
+                                          grid=grid),
+                 "t2": exact_type2_subset(points, modes, idx["t2"], 1.0,
+                                          dev, grid=grid)}
+        failed = []
+        for key, ttype, direction, src in (
+                ("t1", "type_1", "forward", strengths),
+                ("t2", "type_2", "backward", modes_p)):
+            spec = dict(transform_type=ttype, fft_direction=direction,
+                        rank=3, grid_shape=grid, tol=TOL, points_range=1)
+            ref = from_planar(plain_pipeline(
+                src[None].double(), pts.double(),
+                make_plan(PlanSpec(dtype_name="complex128", **spec)))[0])
+            f32 = from_planar(plain_pipeline(
+                src[None], pts,
+                make_plan(PlanSpec(dtype_name="complex64", **spec)))[0])
+            scale = float(ref.abs().max())
+            floor = float((f32.to(torch.complex128) - ref).abs().max()
+                          / scale)
+            for name in (f"{key}_planned", f"{key}_unplanned"):
+                got = from_planar(outs[name]).to(torch.complex128)
+                err_total = float((got.reshape(-1)[idx[key]]
+                                   - exact[key]).abs().max() / scale)
+                err_impl = float((got - ref).abs().max() / scale)
+                gate_impl = max(TOL, 4 * floor)
+                log(f"3d_long {grid} {name}: err_total {err_total:.3e} "
+                    f"(gate < {10 * TOL:g}); err_impl {err_impl:.3e} (gate "
+                    f"< {gate_impl:.3e}; floor_f32 {floor:.3e})")
+                if not (err_total < 10 * TOL and err_impl < gate_impl):
+                    failed.append(name)
+        if failed:
+            raise RuntimeError(f"3d_long {grid} accuracy gates failed: "
+                               f"{failed}")
+        del op, outs, modes_p, exact
+        torch.cuda.empty_cache()
+    return total
 
 
 def plain_pipeline(source, points, plan):
@@ -1500,13 +1727,11 @@ def kernel_phase_binned(op, dev):
     twiddles = planar_fft.dfta_twiddles(plan, geom, dev)
     y = spread.dfta_plain(spread.spread_tiles_plain(
         values[2], tb, geom, plan, coords=coords, band=band), twiddles)
-    spec2 = fft3d.fft_plain(mode3d.fold_plain(y, geom, 1, axes=2), (1, 2),
-                            "forward").contiguous()
     log(f"3D binned bytes: banded tile array {tiles.numel() * 4:.4e}, y "
         f"{y.numel() * 4:.4e}, coords payload {coords.numel() * 4:.4e}, "
         f"twiddles {twiddles.numel() * 4:.4e}")
     wrap = wrappers()
-    n3, nt2, e2 = int(np.prod(GRID3)), geom.tiles[2], geom.ext[2]
+    nt2, e2 = geom.tiles[2], geom.ext[2]
     spread_work = tile_work("spread", False, geom, plan, 2, m, used)
     # The epilogue: per y pair and t2 tile, three E2-long dot products and
     # the xr + xi sum, 7 operations per E2 element.
@@ -1538,13 +1763,6 @@ def kernel_phase_binned(op, dev):
                 twiddles),
             (spread_work[0] - tile_bytes + 4 * y.numel()
              + 4 * twiddles.numel(), spread_work[1] + epi_ops)),
-        # The n^3 spectrum values it needs in, modes out, 3 multiplies.
-        "truncate_deconvolve2": (
-            functools.partial(wrap["truncate_deconvolve2"], spec2, plan,
-                              geom),
-            functools.partial(mode3d.truncate_deconvolve_plain, spec2, plan,
-                              axes=2),
-            (16 * n3 + 4 * sum(GRID3[:2]), 3 * n3)),
     }
     results = {}
     for name, (kernel, plain, work) in cases.items():
@@ -1558,9 +1776,10 @@ def kernel_phase_binned(op, dev):
     halo = {}
     halo_phase("banded 3D headline", geom, 1, tiles, fine, halo, y)
     results["fold2"] = halo["fold2"]
-    # The fused route's two-axis FFT of the folded y.
-    fft_phase("fused route", wrap["fold2"](y, geom, 1), (1, 2), "forward",
-              {})
+    # The fused route's pruned passes of axes 1 and 0 (the JSON keeps
+    # them), and the full-grid FFT of the folded y's two axes.
+    stage_phase("fused route", plan, 1, results, gen, ("fine_to_modes2",))
+    fft_phase("fused route", wrap["fold2"](y, geom, 1), (1, 2), "forward")
     del fine, halo
     extra = {}
     hold("spread3d_banded_split", functools.partial(
@@ -2668,6 +2887,7 @@ def main():
     phases.update(large_phases)
     results.update(large_results)
     torch.cuda.empty_cache()
+    phases["3d_long"] = long_axis_phase(dev)
     results.update(kernel_phase_train(rng, points, points3, dev))
     train_launches, cases = train_phase_2d(points, dev)
     phases.update(train_launches)

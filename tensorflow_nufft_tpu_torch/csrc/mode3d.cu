@@ -1,46 +1,37 @@
-// Rank-3 mode stages for NVIDIA Hopper: the hand-written kernels around
-// the FFT (csrc/fft3d.cu) of the 3D planar NUFFT.
+// Rank-3 mode stages for NVIDIA Hopper: the halo kernels around the
+// pruned FFT passes (csrc/fft3d.cu) of the 3D planar NUFFT.
 //
-// Type-1 post-stage, replacing the Pallas TPU kernels
+// Type-1 post-stage, replacing the halo fold of the Pallas TPU kernels
 //   tensorflow_nufft_tpu/kernels/pallas_dft.py:_pass_a_kernel,
 //   :_pass_b_kernel and :_pass_c_kernel
 // (the periodic overlap-add of the tile halos, the DFT, truncation to the
 // n modes and deconvolution, one axis per pass as matrix products):
 //   fold3d               tiles [*tiles, 2B, *ext] f32 -> complex64 fine
 //                        grid [B, *nf] (re/im interleaved, the FFT's input)
-//   (fft_axis over the three axes, csrc/fft3d.cu)
-//   truncate_deconvolve3d  spectrum at the mode slots k mod nf, times
-//                        w0[i] * w1[j] * w2[k] -> planar [B, n0, n1, n2, 2]
-// Type-2 pre-stage, replacing
+//   (fft_axis over the three axes, the truncation and deconvolution in
+//   its last store: csrc/fft3d.cu)
+// Type-2 pre-stage, replacing the halo windows of
 //   tensorflow_nufft_tpu/kernels/pallas_dft.py:_dual_c_kernel,
 //   :_dual_b_kernel and :_dual_a_kernel
 // (amplification, zero-padding, the DFT and halo windowing):
-//   amplify_pad3d        planar modes -> complex64 fine grid, the weighted
-//                        mode at a mode slot and 0 elsewhere (every cell
-//                        is written, so there is no memset)
-//   (fft_axis)
+//   (fft_axis over the three axes, the amplification and padding in its
+//   first load: csrc/fft3d.cu)
 //   extend_tiles3d       complex64 fine grid -> [*tiles, 2B, *ext] f32
 //                        with periodic halos
 // The TPU computes the DFT as matrix products with the fold, padding and
-// weights built in; here the DFT is the FFT of csrc/fft3d.cu, and every
-// other step of those six kernels is here.
+// weights built in; here the DFT with the mode ends is csrc/fft3d.cu, and
+// the halo steps of those six kernels are here.
 //
-// Two-axis variants (kAxes = 2), the stages after the fused banded
-// spread (csrc/spread.cu, replacing pallas_spread.py:
+// Two-axis variant (kAxes = 2), after the fused banded spread
+// (csrc/spread.cu, replacing pallas_spread.py:
 // _spread_kernel_split_banded_dfta, whose epilogue already contracted
-// axis 2 to its n2 modes with the deconvolving twiddles), replacing
-// pallas_dft.py:_pass_b_kernel and :_pass_c_kernel on that route
+// axis 2 to its n2 modes with the deconvolving twiddles), replacing the
+// fold of pallas_dft.py:_pass_b_kernel and :_pass_c_kernel on that route
 // (_run_passes_bc):
 //   fold3d               y [nt0, nt1, 2B, E0, E1, n2] -> complex64
 //                        [B, nf0, nf1, n2]: the overlap-add of axes 0 and
 //                        1 only (axis 2 is one untiled block of n2)
-//   (fft_axis over axes 0 and 1)
-//   truncate_deconvolve3d  the mode slots and weights of axes 0 and 1;
-//                        axis 2 is already in mode order and weighted
-//
-// Design of truncate_deconvolve3d and amplify_pad3d: a gather, one
-// thread per output element, with a grid-stride loop, so every element
-// is written once, without atomics, and the results are deterministic.
+//   (fft_axis over axes 1 and 0, csrc/fft3d.cu)
 //
 // Design of the halo kernels, extend_tiles3d and fold3d (and fold3d with
 // kAxes = 2). Both move memory and do at most 8 additions a cell, so
@@ -87,17 +78,15 @@ namespace {
 // kAxes: the leading axes that are tiled and transformed (3, or 2 for the
 // fused route, whose axis 2 has nt2 = 1, tile2 = nf2 = n2 and no halo).
 // kVec .. kBlocks: the halo kernels' launch (kernels/mode3d.py:
-// halo_launch; 0 for the other kernels).
+// halo_launch).
 enum ModeParam {
-  kBatch, kNf0, kNf1, kNf2, kN0, kN1, kN2, kNt0, kNt1, kNt2, kTile0,
-  kTile1, kTile2, kPad, kAxes, kVec, kLanes, kRows, kIters, kBlocks,
-  kNumModeParams
+  kBatch, kNf0, kNf1, kNf2, kNt0, kNt1, kNt2, kTile0, kTile1, kTile2, kPad,
+  kAxes, kVec, kLanes, kRows, kIters, kBlocks, kNumModeParams
 };
 
 struct Grid3 {
   int batch;
   int nf[3];    // fine grid
-  int n[3];     // modes
   int nt[3];    // tiles per axis
   int tile[3];  // core tile dims
   int pad;      // halo on each side
@@ -109,38 +98,12 @@ Grid3 grid_from(const int* ip) {
   g.batch = ip[kBatch];
   for (int d = 0; d < 3; ++d) {
     g.nf[d] = ip[kNf0 + d];
-    g.n[d] = ip[kN0 + d];
     g.nt[d] = ip[kNt0 + d];
     g.tile[d] = ip[kTile0 + d];
   }
   g.pad = ip[kPad];
   g.axes = ip[kAxes];
   return g;
-}
-
-constexpr int kThreads = 256;
-
-dim3 blocks_for(long long total) {
-  // Grid-stride loops: enough blocks to fill the card, no more.
-  long long b = (total + kThreads - 1) / kThreads;
-  return dim3((unsigned)(b < 132 * 64 ? (b > 0 ? b : 1) : 132 * 64));
-}
-
-__device__ __forceinline__ long long first_index() {
-  return (long long)blockIdx.x * blockDim.x + threadIdx.x;
-}
-
-__device__ __forceinline__ long long stride() {
-  return (long long)gridDim.x * blockDim.x;
-}
-
-// Mode index i of fine index x along an axis with n modes and nf fine
-// cells (mode i has frequency i - n/2 and lives at (i - n/2) mod nf), or
-// -1 if x holds no mode.
-__device__ __forceinline__ int mode_of(int x, int n, int nf) {
-  if (x < n - n / 2) return x + n / 2;
-  if (x >= nf - n / 2) return x - nf + n / 2;
-  return -1;
 }
 
 // The halo kernels' launch (kernels/mode3d.py:halo_launch).
@@ -368,60 +331,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-__global__ void truncate_deconvolve3d_kernel(
-    const float2* __restrict__ spec, const float* __restrict__ w0,
-    const float* __restrict__ w1, const float* __restrict__ w2,
-    float2* __restrict__ out, Grid3 g) {
-  const long long total = (long long)g.batch * g.n[0] * g.n[1] * g.n[2];
-  for (long long idx = first_index(); idx < total; idx += stride()) {
-    long long rem = idx;
-    int m[3], slot[3];
-#pragma unroll
-    for (int d = 2; d >= 0; --d) {
-      m[d] = (int)(rem % g.n[d]);
-      rem /= g.n[d];
-      slot[d] = d < g.axes ? (m[d] - g.n[d] / 2 + g.nf[d]) % g.nf[d] : m[d];
-    }
-    const long long b = rem;
-    const float2 v =
-        spec[((b * g.nf[0] + slot[0]) * g.nf[1] + slot[1]) * g.nf[2] +
-             slot[2]];
-    float wt = __fmul_rn(w0[m[0]], w1[m[1]]);
-    if (g.axes == 3) wt = __fmul_rn(wt, w2[m[2]]);
-    out[idx] = make_float2(__fmul_rn(v.x, wt), __fmul_rn(v.y, wt));
-  }
-}
-
-__global__ void amplify_pad3d_kernel(const float2* __restrict__ modes,
-                                     const float* __restrict__ w0,
-                                     const float* __restrict__ w1,
-                                     const float* __restrict__ w2,
-                                     float2* __restrict__ fine, Grid3 g) {
-  const long long total =
-      (long long)g.batch * g.nf[0] * g.nf[1] * g.nf[2];
-  for (long long idx = first_index(); idx < total; idx += stride()) {
-    long long rem = idx;
-    int m[3];
-    bool hit = true;
-#pragma unroll
-    for (int d = 2; d >= 0; --d) {
-      const int x = (int)(rem % g.nf[d]);
-      rem /= g.nf[d];
-      m[d] = mode_of(x, g.n[d], g.nf[d]);
-      hit = hit && m[d] >= 0;
-    }
-    float2 val = make_float2(0.0f, 0.0f);
-    if (hit) {
-      const long long b = rem;
-      const float2 v =
-          modes[((b * g.n[0] + m[0]) * g.n[1] + m[1]) * g.n[2] + m[2]];
-      const float wt = __fmul_rn(__fmul_rn(w0[m[0]], w1[m[1]]), w2[m[2]]);
-      val = make_float2(__fmul_rn(v.x, wt), __fmul_rn(v.y, wt));
-    }
-    fine[idx] = val;
-  }
-}
-
 }  // namespace
 
 // fold3d: tiles [*tiles, 2B, *ext] float32 -> fine [B, *nf] complex64
@@ -438,36 +347,6 @@ extern "C" int tnt_fold3d(const void* tiles, void* fine, const int* ip,
     fold3d_kernel<1><<<h.blocks, threads, 0, (cudaStream_t)stream>>>(
         (const float*)tiles, (float2*)fine, g, h);
   }
-  return (int)cudaGetLastError();
-}
-
-// truncate_deconvolve3d: spectrum [B, *nf] complex64 and the per-axis
-// deconvolution weights w_d [n_d] float32 -> out [B, *n, 2] float32
-// (kAxes = 2: nf2 = n2, axis 2 passed through and w2 unread).
-extern "C" int tnt_truncate_deconvolve3d(const void* spec, const void* w0,
-                                         const void* w1, const void* w2,
-                                         void* out, const int* ip,
-                                         void* stream) {
-  const Grid3 g = grid_from(ip);
-  const long long total = (long long)g.batch * g.n[0] * g.n[1] * g.n[2];
-  truncate_deconvolve3d_kernel<<<blocks_for(total), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      (const float2*)spec, (const float*)w0, (const float*)w1,
-      (const float*)w2, (float2*)out, g);
-  return (int)cudaGetLastError();
-}
-
-// amplify_pad3d: modes [B, *n, 2] float32 and the per-axis weights ->
-// fine [B, *nf] complex64 (every cell written).
-extern "C" int tnt_amplify_pad3d(const void* modes, const void* w0,
-                                 const void* w1, const void* w2, void* fine,
-                                 const int* ip, void* stream) {
-  const Grid3 g = grid_from(ip);
-  const long long total = (long long)g.batch * g.nf[0] * g.nf[1] * g.nf[2];
-  amplify_pad3d_kernel<<<blocks_for(total), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const float2*)modes, (const float*)w0, (const float*)w1,
-      (const float*)w2, (float2*)fine, g);
   return (int)cudaGetLastError();
 }
 

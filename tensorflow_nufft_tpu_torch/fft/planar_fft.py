@@ -4,24 +4,26 @@
 Counterpart of ``tensorflow_nufft_tpu.fft.planar_fft``
 (``dft_truncate_deconvolve_tiled``, ``amplify_pad_dft_tiled``) and
 ``fft.fft_ops``. The TPU path computes these stages as pruned matmul
-DFTs because its backend has no complex FFT; here the DFT is an FFT on
-the full fine grid: at rank 3 on the card the hand-written kernel of
-``kernels.fft3d``, elsewhere its plain version (``torch.fft``).
+DFTs because its backend has no complex FFT. Here, at rank 3 on the card,
+they are the halo kernels of ``kernels.mode3d`` around the pruned FFT
+passes of ``kernels.fft3d`` (``modes_to_fine_cuda``,
+``fine_to_modes_cuda``), which fuse the amplification and padding, or
+the truncation and deconvolution, into their first load or last store;
+elsewhere the plain versions, an FFT of the full fine grid
+(``torch.fft``).
 
 ``spread_dft_fused`` is the planned type-1 of ``kernels.pallas_dft.
 spread_dft_fused``: at the rank-3 binned level with a band, where the
 ``FUSED_DFTA`` gate takes it, the fused route, the banded spread whose
 epilogue contracts axis 2 with the twiddles of ``dfta_twiddles``
-(``kernels.dispatch.spread_dfta``), then the two-axis fold, FFT and
-truncation of ``kernels.mode3d`` and ``kernels.fft3d``; elsewhere the
-spread and the staged mode stage above.
+(``kernels.dispatch.spread_dfta``), then the two-axis fold and the
+pruned passes of axes 1 and 0; elsewhere the spread and the staged mode
+stage above.
 
-The steps around the FFT dispatch as the JAX rank-3 stages do
-(``planar_fft.py:143-150``, ``:244-250``): at rank 3 a CUDA tensor goes
-to the hand-written kernels of ``kernels.mode3d`` and ``kernels.fft3d``;
-a CPU tensor, and
-ranks 1 and 2 (which the JAX package keeps in XLA), to their plain
-PyTorch versions.
+The steps dispatch as the JAX rank-3 stages do (``planar_fft.py:143-150``,
+``:244-250``): at rank 3 a CUDA tensor goes to the hand-written kernels;
+a CPU tensor, and ranks 1 and 2 (which the JAX package keeps in XLA), to
+their plain PyTorch versions.
 
 Conventions, as in the JAX package: 'forward' is the exp(-i k.x) sign,
 'backward' exp(+i k.x) with no normalization; mode index i along a size-n
@@ -54,13 +56,9 @@ from tensorflow_nufft_tpu_torch.plan.plan import make_plan
 FUSED_DFTA = False
 
 
-def _fft(x: torch.Tensor, fft_direction: str, dims=None) -> torch.Tensor:
-    """The DFT over ``dims`` (all but the batch axis by default): the
-    FFT kernel at rank 3 on the card, ``torch.fft`` elsewhere."""
-    dims = tuple(range(1, x.ndim)) if dims is None else dims
-    if mode3d.on_kernels(x, x.ndim - 1):
-        return fft3d.fft3d_cuda(x, dims, fft_direction)
-    return fft3d.fft_plain(x, dims, fft_direction)
+def _dims(x: torch.Tensor):
+    """Every axis but the batch axis."""
+    return tuple(range(1, x.ndim))
 
 
 def dft_truncate_deconvolve_tiled(tiles: torch.Tensor, plan,
@@ -69,12 +67,11 @@ def dft_truncate_deconvolve_tiled(tiles: torch.Tensor, plan,
     """Type-1 post-stage: tiles [*tiles, 2*batch, *ext] (row order
     (b, re/im)) -> modes [batch, *grid_shape, 2]."""
     if mode3d.on_kernels(tiles, plan.rank):
-        spec = _fft(mode3d.fold3d_cuda(tiles, geom, batch),
-                    plan.spec.fft_direction)
-        return mode3d.truncate_deconvolve3d_cuda(spec, plan, geom)
-    spec = _fft(mode3d.fold_plain(tiles, geom, batch),
-                plan.spec.fft_direction)
-    return mode3d.truncate_deconvolve_plain(spec, plan)
+        return fft3d.fine_to_modes_cuda(
+            mode3d.fold3d_cuda(tiles, geom, batch), plan)
+    fine = mode3d.fold_plain(tiles, geom, batch)
+    return mode3d.truncate_deconvolve_plain(
+        fft3d.fft_plain(fine, _dims(fine), plan.spec.fft_direction), plan)
 
 
 def amplify_pad_dft_tiled(modes: torch.Tensor, plan, geom: TileGeometry
@@ -82,12 +79,11 @@ def amplify_pad_dft_tiled(modes: torch.Tensor, plan, geom: TileGeometry
     """Type-2 pre-stage: modes [batch, *grid_shape, 2] -> tiles
     [*tiles, 2*batch, *ext] ready for the interp kernel."""
     if mode3d.on_kernels(modes, plan.rank):
-        fine = _fft(mode3d.amplify_pad3d_cuda(modes, plan, geom),
-                    plan.spec.fft_direction)
-        return mode3d.extend_tiles3d_cuda(fine, geom)
-    fine = _fft(mode3d.amplify_pad_plain(modes, plan),
-                plan.spec.fft_direction)
-    return mode3d.extend_plain(fine, geom)
+        return mode3d.extend_tiles3d_cuda(
+            fft3d.modes_to_fine_cuda(modes, plan), geom)
+    fine = mode3d.amplify_pad_plain(modes, plan)
+    return mode3d.extend_plain(
+        fft3d.fft_plain(fine, _dims(fine), plan.spec.fft_direction), geom)
 
 
 def ext_mode_twiddles(nf: int, n: int, num_tiles: int, tile: int,
@@ -141,12 +137,11 @@ def dft_truncate_deconvolve_fused(y: torch.Tensor, plan,
     """The fused route's mode stage: y [nt0, nt1, 2*batch, E0, E1, n2]
     (axis 2 already transformed, truncated and deconvolved) -> modes
     [batch, *grid_shape, 2]."""
-    direction = plan.spec.fft_direction
     if y.is_cuda:
-        spec = _fft(mode3d.fold2_cuda(y, geom, batch), direction, (1, 2))
-        return mode3d.truncate_deconvolve2_cuda(spec, plan, geom)
-    spec = _fft(mode3d.fold_plain(y, geom, batch, axes=2), direction,
-                (1, 2))
+        return fft3d.fine_to_modes_cuda(mode3d.fold2_cuda(y, geom, batch),
+                                        plan, axes=2)
+    spec = fft3d.fft_plain(mode3d.fold_plain(y, geom, batch, axes=2), (1, 2),
+                           plan.spec.fft_direction)
     return mode3d.truncate_deconvolve_plain(spec, plan, axes=2)
 
 

@@ -82,18 +82,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tnt_interp_banded.argtypes = [ptr, ptr, ptr, ptr, ptr, i32p, f32p,
                                       ptr]
     lib.tnt_interp_banded.restype = ctypes.c_int
-    # Mode stages: (in, out, mode params, stream), and (in, w0, w1, w2,
-    # out, mode params, stream) for the two that apply the weights.
+    # Halo kernels: (in, out, mode params, stream).
     for name in ("tnt_fold3d", "tnt_extend_tiles3d"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, i32p, ptr]
         fn.restype = ctypes.c_int
-    for name in ("tnt_truncate_deconvolve3d", "tnt_amplify_pad3d"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32p, ptr]
-        fn.restype = ctypes.c_int
-    # FFT along one axis: (in, out, twiddles, params, stream).
-    lib.tnt_fft_axis.argtypes = [ptr, ptr, ptr, i32p, ptr]
+    # FFT along one axis: (in, out, twiddles, long twiddles, w0, w1, w2,
+    # params, stream).
+    lib.tnt_fft_axis.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32p,
+                                 ptr]
     lib.tnt_fft_axis.restype = ctypes.c_int
     lib.tnt_error_string.argtypes = [ctypes.c_int]
     lib.tnt_error_string.restype = ctypes.c_char_p
@@ -197,16 +194,14 @@ def kernel_params(geom, plan, batch2: int, group: int, threads: int,
             (ctypes.c_float * len(floats))(*floats))
 
 
-def mode_params(geom, grid_shape, batch: int, axes: int = 3,
-                launch=(0, 0, 0, 0, 0)):
-    """The int parameter array of a rank-3 mode-stage launch, in the
+def mode_params(geom, batch: int, axes: int, launch):
+    """The int parameter array of a rank-3 halo-kernel launch, in the
     order of ``ModeParam`` in ``csrc/mode3d.cu``: ``axes`` leading axes
-    tiled and transformed (2 for the fused route, whose ``geom`` then
-    describes [nt0, nt1, 1] tiles of (t0, t1, n2)), and the halo
-    kernels' ``launch`` (``mode3d.halo_launch``)."""
-    ints = ((batch,) + tuple(geom.fine_shape) + tuple(grid_shape)
-            + tuple(geom.tiles) + tuple(geom.tile) + (geom.pad, axes)
-            + tuple(launch))
+    tiled (2 for the fused route, whose ``geom`` then describes
+    [nt0, nt1, 1] tiles of (t0, t1, n2)), and the ``launch``
+    (``mode3d.halo_launch``)."""
+    ints = ((batch,) + tuple(geom.fine_shape) + tuple(geom.tiles)
+            + tuple(geom.tile) + (geom.pad, axes) + tuple(launch))
     return (ctypes.c_int * len(ints))(*ints)
 
 

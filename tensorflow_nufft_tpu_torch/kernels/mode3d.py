@@ -1,37 +1,38 @@
-"""Mode stages around the FFT: halo fold, truncation and deconvolution
-(type-1), amplification, padding and halo windows (type-2).
+"""Mode stages around the FFT: the halo fold (type-1) and the halo
+windows (type-2), and the plain versions of the whole stages.
 
 Counterpart of the rank-3 ``tensorflow_nufft_tpu.kernels.pallas_dft``
 pass chains. The TPU computes the mode-stage DFT as matrix products
-with the halo fold, padding and weights built in; here the DFT is the
-hand-written FFT of ``kernels.fft3d`` (``fft.planar_fft``), and the four
-other steps are hand-written Hopper kernels of ``csrc/mode3d.cu``, one
-per entry point:
+with the halo fold, padding and weights built in; here the DFT, with the
+amplification and padding (type-2) or the truncation and deconvolution
+(type-1) fused into its first load or last store, is the hand-written
+FFT of ``kernels.fft3d``, and the halo steps are hand-written Hopper
+kernels of ``csrc/mode3d.cu``, one per entry point:
 
-- ``fold3d_cuda`` and ``truncate_deconvolve3d_cuda`` replace the type-1
-  passes ``_pass_a_kernel``, ``_pass_b_kernel`` and ``_pass_c_kernel``;
-- ``amplify_pad3d_cuda`` and ``extend_tiles3d_cuda`` replace the type-2
-  passes ``_dual_c_kernel``, ``_dual_b_kernel`` and ``_dual_a_kernel``;
-- ``fold2_cuda`` and ``truncate_deconvolve2_cuda``, their two-axis
-  variants, replace passes ``_pass_b_kernel`` and ``_pass_c_kernel`` on
-  the fused type-1 route (``pallas_dft._run_passes_bc``), after the
-  banded spread whose epilogue contracted axis 2 (``spread.
-  spread_dfta_cuda``): they fold and truncate axes 0 and 1 of
-  y [nt0, nt1, B2, E0, E1, n2] around a two-axis FFT.
+- ``fold3d_cuda`` (before ``fft3d.fine_to_modes_cuda``) replaces the
+  halo fold of the type-1 passes ``_pass_a_kernel``, ``_pass_b_kernel``
+  and ``_pass_c_kernel``;
+- ``extend_tiles3d_cuda`` (after ``fft3d.modes_to_fine_cuda``) the halo
+  windows of the type-2 passes ``_dual_c_kernel``, ``_dual_b_kernel``
+  and ``_dual_a_kernel``;
+- ``fold2_cuda``, the two-axis fold, that of passes ``_pass_b_kernel``
+  and ``_pass_c_kernel`` on the fused type-1 route
+  (``pallas_dft._run_passes_bc``), after the banded spread whose
+  epilogue contracted axis 2 (``spread.spread_dfta_cuda``): it folds
+  axes 0 and 1 of y [nt0, nt1, B2, E0, E1, n2].
 
 The kernels take rank 3 and float32. Each has a plain PyTorch version of
-the same function (any rank, float32 or float64): ``fold_plain``,
-``truncate_deconvolve_plain`` (both with ``axes=2`` for the two-axis
-variants), ``amplify_pad_plain`` and ``extend_plain``. ``fft.planar_fft``
-uses the plain versions for CPU tensors and for ranks 1 and 2 (which
-the JAX package also keeps out of Pallas),
-and ``chip_smoke.py`` holds each kernel to its plain version on the card.
-Each CUDA entry point counts its launches in its ``launches`` attribute.
-What bounds the kernels (memory traffic) is in the source note of
-``csrc/mode3d.cu``. The halo kernels (``extend_tiles3d_cuda``,
-``fold3d_cuda``, ``fold2_cuda``) take rows of the tiles in blocks of
-``halo_launch``'s shape, computed here so that a CPU test can sweep
-every geometry.
+the same function (any rank, float32 or float64): ``fold_plain`` (with
+``axes=2`` for the two-axis fold) and ``extend_plain``; the plain mode
+ends ``truncate_deconvolve_plain`` and ``amplify_pad_plain`` are those
+of ``kernels.fft3d``'s passes. ``fft.planar_fft`` uses the plain
+versions for CPU tensors and for ranks 1 and 2 (which the JAX package
+also keeps out of Pallas), and ``chip_smoke.py`` holds each kernel to its
+plain version on the card. Each CUDA entry point counts its launches in
+its ``launches`` attribute. What bounds the kernels (memory traffic) is
+in the source note of ``csrc/mode3d.cu``. They take rows of the tiles in
+blocks of ``halo_launch``'s shape, computed here so that a CPU test can
+sweep every geometry.
 """
 
 from __future__ import annotations
@@ -215,14 +216,6 @@ def _rank3(kernel: str, geom: TileGeometry) -> None:
         raise NotImplementedError(f"the {kernel} kernel is rank 3 only")
 
 
-def _weights3(plan, device):
-    need = functools.partial(_build.require_cuda, "mode3d")
-    ws = [deconv_weights(plan, d, torch.float32, device) for d in range(3)]
-    for d, w in enumerate(ws):
-        need(w, f"w{d}", torch.float32, (plan.grid_shape[d],))
-    return ws
-
-
 def fold3d_cuda(tiles: torch.Tensor, geom: TileGeometry, batch: int
                 ) -> torch.Tensor:
     """Hopper ``fold_plain``: tiles [*tiles, 2*batch, *ext] float32 ->
@@ -234,42 +227,8 @@ def fold3d_cuda(tiles: torch.Tensor, geom: TileGeometry, batch: int
                        device=tiles.device)
     launch = halo_launch(geom, batch, "fold", 3, _aligned(tiles, fine))
     _run("tnt_fold3d", tiles, fine,
-         _build.mode_params(geom, (1, 1, 1), batch, 3, launch))
+         _build.mode_params(geom, batch, 3, launch))
     fold3d_cuda.launches += 1
-    return fine
-
-
-def truncate_deconvolve3d_cuda(spec: torch.Tensor, plan,
-                               geom: TileGeometry) -> torch.Tensor:
-    """Hopper ``truncate_deconvolve_plain``: complex64 spectrum
-    [batch, *fine] -> float32 planar modes [batch, *grid_shape, 2]."""
-    _rank3("truncate_deconvolve3d", geom)
-    batch = spec.shape[0]
-    _build.require_cuda("truncate_deconvolve3d", spec, "spectrum",
-                        torch.complex64, (batch,) + geom.fine_shape)
-    w0, w1, w2 = _weights3(plan, spec.device)
-    out = torch.empty((batch,) + tuple(plan.grid_shape) + (2,),
-                      dtype=torch.float32, device=spec.device)
-    _run("tnt_truncate_deconvolve3d", spec, w0, w1, w2, out,
-         _build.mode_params(geom, plan.grid_shape, batch))
-    truncate_deconvolve3d_cuda.launches += 1
-    return out
-
-
-def amplify_pad3d_cuda(modes: torch.Tensor, plan, geom: TileGeometry
-                       ) -> torch.Tensor:
-    """Hopper ``amplify_pad_plain``: float32 planar modes
-    [batch, *grid_shape, 2] -> complex64 fine grid [batch, *fine]."""
-    _rank3("amplify_pad3d", geom)
-    batch = modes.shape[0]
-    _build.require_cuda("amplify_pad3d", modes, "modes", torch.float32,
-                        (batch,) + tuple(plan.grid_shape) + (2,))
-    w0, w1, w2 = _weights3(plan, modes.device)
-    fine = torch.empty((batch,) + geom.fine_shape, dtype=torch.complex64,
-                       device=modes.device)
-    _run("tnt_amplify_pad3d", modes, w0, w1, w2, fine,
-         _build.mode_params(geom, plan.grid_shape, batch))
-    amplify_pad3d_cuda.launches += 1
     return fine
 
 
@@ -285,7 +244,7 @@ def extend_tiles3d_cuda(fine: torch.Tensor, geom: TileGeometry
                         dtype=torch.float32, device=fine.device)
     launch = halo_launch(geom, batch, "extend", 3, _aligned(fine, tiles))
     _run("tnt_extend_tiles3d", fine, tiles,
-         _build.mode_params(geom, (1, 1, 1), batch, 3, launch))
+         _build.mode_params(geom, batch, 3, launch))
     extend_tiles3d_cuda.launches += 1
     return tiles
 
@@ -311,33 +270,11 @@ def fold2_cuda(y: torch.Tensor, geom: TileGeometry, batch: int
                        device=y.device)
     launch = halo_launch(g2, batch, "fold", 2, _aligned(y, fine))
     _run("tnt_fold3d", y, fine,
-         _build.mode_params(g2, (1, 1, 1), batch, 2, launch))
+         _build.mode_params(g2, batch, 2, launch))
     fold2_cuda.launches += 1
     return fine
 
 
-def truncate_deconvolve2_cuda(spec: torch.Tensor, plan, geom: TileGeometry
-                              ) -> torch.Tensor:
-    """Hopper ``truncate_deconvolve_plain(axes=2)``: complex64 spectrum
-    [batch, nf0, nf1, n2] -> float32 planar modes [batch, *grid_shape,
-    2]."""
-    _rank3("truncate_deconvolve2", geom)
-    batch, n2 = spec.shape[0], plan.grid_shape[2]
-    g2 = _modes2_geometry(geom, n2)
-    _build.require_cuda("truncate_deconvolve2", spec, "spectrum",
-                        torch.complex64, (batch,) + g2.fine_shape)
-    w0, w1, w2 = _weights3(plan, spec.device)
-    out = torch.empty((batch,) + tuple(plan.grid_shape) + (2,),
-                      dtype=torch.float32, device=spec.device)
-    _run("tnt_truncate_deconvolve3d", spec, w0, w1, w2, out,
-         _build.mode_params(g2, plan.grid_shape, batch, 2))
-    truncate_deconvolve2_cuda.launches += 1
-    return out
-
-
 fold3d_cuda.launches = 0
 fold2_cuda.launches = 0
-truncate_deconvolve2_cuda.launches = 0
-truncate_deconvolve3d_cuda.launches = 0
-amplify_pad3d_cuda.launches = 0
 extend_tiles3d_cuda.launches = 0

@@ -141,8 +141,8 @@ def test_planned_type1_matches_the_binned_level(monkeypatch):
     """The whole planned type-1: at this size the JAX level runs the
     banded spread with the axis-2 DFT fused into its epilogue
     (``_spread_kernel_split_banded_dfta``), then DFT passes B and C; the
-    port runs its planned spread, fold3d, the FFT and
-    truncate_deconvolve3d (plain versions here)."""
+    port runs its planned spread, fold3d and the FFT passes with the
+    truncation and deconvolution (plain versions here)."""
     op = binned_level_plan()[0]
     calls = _spy(monkeypatch, pallas_spread,
                  "_spread_kernel_split_banded_dfta")

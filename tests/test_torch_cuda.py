@@ -16,7 +16,7 @@ import torch
 
 import tensorflow_nufft_tpu_torch as tnt
 from tensorflow_nufft_tpu_torch.fft import planar_fft
-from tensorflow_nufft_tpu_torch.fft.planar_fft import _fft, dfta_twiddles
+from tensorflow_nufft_tpu_torch.fft.planar_fft import dfta_twiddles
 from tensorflow_nufft_tpu_torch.kernels import (
     binning, fft3d, interp, mode3d, spread)
 from tensorflow_nufft_tpu_torch.ops.planar_core import bin_for_plan
@@ -345,14 +345,14 @@ def test_mode3d_kernels_match_plain(dev, grid, direction, banded, tile_pref,
     assert torch.equal(fine, mode3d.fold3d_cuda(tiles, geom, batch))
     assert torch.equal(fine, mode3d.fold3d_cuda(_unaligned(tiles), geom,
                                                 batch))
-    spec = _fft(want, direction)
-    _close(mode3d.truncate_deconvolve3d_cuda(spec, plan, geom),
+    spec = fft3d.fft_plain(want, (1, 2, 3), direction)
+    _close(fft3d.fine_to_modes_cuda(want, plan),
            mode3d.truncate_deconvolve_plain(spec, plan))
     modes = torch.from_numpy(rng.standard_normal(
         (batch,) + grid + (2,)).astype(np.float32)).to(dev)
-    got = mode3d.amplify_pad3d_cuda(modes, plan, geom)
-    _close(torch.view_as_real(got),
-           torch.view_as_real(mode3d.amplify_pad_plain(modes, plan)))
+    got = fft3d.modes_to_fine_cuda(modes, plan)
+    _close(torch.view_as_real(got), torch.view_as_real(fft3d.fft_plain(
+        mode3d.amplify_pad_plain(modes, plan), (1, 2, 3), direction)))
     ext = mode3d.extend_tiles3d_cuda(spec, geom)
     assert torch.equal(ext, mode3d.extend_plain(spec, geom))
     assert torch.equal(ext, mode3d.extend_tiles3d_cuda(spec, geom))
@@ -370,25 +370,160 @@ def test_mode3d_kernels_match_plain(dev, grid, direction, banded, tile_pref,
 
 # (shape, dims): the 3D headline's fine grid, the large-tile cell's
 # (radix 5), batch 3 with lines of 2, 3 and 5 factors, and the fused
-# route's two-axis transform of [B, nf0, nf1, n2].
+# route's two-axis transform of [B, nf0, nf1, n2]; then fine grids with
+# an axis longer than shared memory (the four-step split, two launches)
+# on axes 2, 0 and 1.
 FFT_CASES = [((1, 256, 256, 256), (1, 2, 3)),
              ((1, 320, 320, 320), (1, 2, 3)),
              ((3, 90, 36, 50), (1, 2, 3)),
              ((2, 256, 256, 128), (1, 2))]
+LONG_FFT_CASES = [(1, 16, 16, 8192), (1, 8192, 16, 16), (1, 32, 6000, 32)]
 
 
-@pytest.mark.parametrize("shape,dims", FFT_CASES)
+def _fft_close(got, want, rtol):
+    got, want = torch.view_as_real(got), torch.view_as_real(want)
+    peak = float(want.abs().max())
+    assert float((got - want).abs().max()) <= rtol * peak
+
+
+@pytest.mark.parametrize("shape,dims", FFT_CASES + [
+    (shape, (1, 2, 3)) for shape in LONG_FFT_CASES])
 @pytest.mark.parametrize("direction", ("forward", "backward"))
 def test_fft3d_kernel_matches_torch_fft(dev, shape, dims, direction):
     gen = torch.Generator(device=dev).manual_seed(sum(shape))
     x = torch.complex(*(torch.randn(shape, generator=gen, device=dev)
                         for _ in range(2)))
+    splits = sum(fft3d.split_of(shape[d]) is not None for d in dims)
     before = fft3d.fft3d_cuda.launches
     got = fft3d.fft3d_cuda(x, dims, direction)
-    assert fft3d.fft3d_cuda.launches == before + len(dims)
+    assert fft3d.fft3d_cuda.launches == before + len(dims) + splits
     want = fft3d.fft_plain(x, dims, direction)
-    _close(torch.view_as_real(got), torch.view_as_real(want))
+    _fft_close(got, want, 2e-6 if splits else RTOL)
     assert torch.equal(got, fft3d.fft3d_cuda(x, dims, direction))
+
+
+# (modes, tol): the 3D headline (fine 256^3), the large-tile cell (fine
+# 320^3, sigma 1.25), and modes whose fine grid has a long axis.
+PRUNED_CASES = [((128, 128, 128), 1e-6), ((256, 256, 256), 1e-6),
+                ((8, 8, 4096), 1e-6), ((4096, 8, 8), 1e-6)]
+
+
+@pytest.mark.parametrize("grid,tol", PRUNED_CASES)
+@pytest.mark.parametrize("batch", (1, 3))
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+def test_pruned_stages_match_plain(dev, grid, tol, batch, direction):
+    """modes_to_fine and fine_to_modes (three pruned passes each, three
+    launches but for a split axis) and the fused route's two-axis
+    fine_to_modes against the plain stages with torch.fft."""
+    plan = make_plan(PlanSpec("type_1", direction, 3, grid, "complex64",
+                              tol, 1))
+    fine_shape, n2 = plan.fine_shape, grid[2]
+    splits = sum(fft3d.split_of(n) is not None for n in fine_shape)
+    gen = torch.Generator(device=dev).manual_seed(batch + sum(grid))
+    modes = torch.randn((batch,) + grid + (2,), generator=gen, device=dev)
+    before = (fft3d.modes_to_fine_cuda.launches,
+              fft3d.fine_to_modes_cuda.launches)
+    got = fft3d.modes_to_fine_cuda(modes, plan)
+    want = fft3d.fft_plain(mode3d.amplify_pad_plain(modes, plan), (1, 2, 3),
+                           direction)
+    _fft_close(got, want, 2e-6)
+    assert torch.equal(got, fft3d.modes_to_fine_cuda(modes, plan))
+    del want
+    fine = torch.complex(*(torch.randn((batch,) + fine_shape, generator=gen,
+                                       device=dev) for _ in range(2)))
+    got = fft3d.fine_to_modes_cuda(fine, plan)
+    _close(got, mode3d.truncate_deconvolve_plain(
+        fft3d.fft_plain(fine, (1, 2, 3), direction), plan))
+    assert torch.equal(got, fft3d.fine_to_modes_cuda(fine, plan))
+    assert (fft3d.modes_to_fine_cuda.launches,
+            fft3d.fine_to_modes_cuda.launches) == (
+                before[0] + 2 * (3 + splits), before[1] + 2 * (3 + splits))
+    fine2 = fine[..., :n2].contiguous()
+    _close(fft3d.fine_to_modes_cuda(fine2, plan, axes=2),
+           mode3d.truncate_deconvolve_plain(
+               fft3d.fft_plain(fine2, (1, 2), direction), plan, axes=2))
+
+
+@pytest.mark.parametrize("grid", [(8, 8, 4096), (4096, 8, 8)])
+@pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
+def test_long_axis_transforms_match_nudft(dev, grid, transform_type):
+    """Planned and unplanned 3D transforms whose fine grid has a long
+    axis, against the dense NUDFT at the JAX tests' gate (1e-3), on the
+    card end to end with no torch.fft."""
+    m = 3000
+    rng = np.random.default_rng(8)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, 3)).astype(
+        np.float32)).to(dev)
+    shape = (1, m, 2) if transform_type == "type_1" else (1,) + grid + (2,)
+    src = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev)
+    kw = dict(grid_shape=grid if transform_type == "type_1" else None,
+              transform_type=transform_type)
+    oracle = tnt.planar.nudft(src.double(), pts.double(), **kw)
+    with _no_torch_fft():
+        outs = (tnt.planar.nufft(src, pts, **kw),
+                tnt.PlannedNufft(pts, grid, transform_type=transform_type)(
+                    src))
+    for got in outs:
+        err = float((got.double() - oracle).abs().max()
+                    / oracle.abs().max())
+        assert err <= 1e-3
+
+
+class _no_torch_fft:
+    """Raises if torch.fft transforms a tensor while it is entered."""
+
+    def __enter__(self):
+        self.saved = torch.fft.fftn, torch.fft.ifftn
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("torch.fft ran on the card path")
+        torch.fft.fftn = torch.fft.ifftn = refuse
+
+    def __exit__(self, *exc):
+        torch.fft.fftn, torch.fft.ifftn = self.saved
+
+
+def test_3d_paths_launch_the_pruned_passes_only(dev, monkeypatch):
+    """Each 3D transform on the card (unplanned, planned at the binned
+    level on the staged and the fused route, and the adjoint) launches
+    three FFT passes and its halo kernel, and no torch.fft."""
+    grid, m = (32, 32, 64), 20000
+    rng = np.random.default_rng(9)
+    pts = rng.uniform(-np.pi, np.pi, (m, 3)).astype(np.float32)
+    c = torch.from_numpy(rng.standard_normal((1, m, 2)).astype(
+        np.float32)).to(dev)
+    f = torch.from_numpy(rng.standard_normal((1,) + grid + (2,)).astype(
+        np.float32)).to(dev)
+    op = _binned_plan(monkeypatch, grid, m, False, dev)
+    counters = {"fold3d": mode3d.fold3d_cuda, "fold2": mode3d.fold2_cuda,
+                "extend": mode3d.extend_tiles3d_cuda,
+                "to_fine": fft3d.modes_to_fine_cuda,
+                "to_modes": fft3d.fine_to_modes_cuda,
+                "full": fft3d.fft3d_cuda}
+    cases = {
+        "type-1": (lambda: tnt.planar.nufft(c, torch.from_numpy(pts).to(dev),
+                                            grid_shape=grid,
+                                            transform_type="type_1"),
+                   {"fold3d": 1, "to_modes": 3}),
+        "type-2": (lambda: tnt.planar.nufft(f, torch.from_numpy(pts).to(dev),
+                                            transform_type="type_2"),
+                   {"extend": 1, "to_fine": 3}),
+        "planned type-1": (lambda: op(c), {"fold3d": 1, "to_modes": 3}),
+        "adjoint": (lambda: op.adjoint()(f), {"extend": 1, "to_fine": 3}),
+    }
+    for fused in (False, True):
+        monkeypatch.setattr(planar_fft, "FUSED_DFTA", fused)
+        for name, (fn, want) in cases.items():
+            if fused and name != "planned type-1":
+                continue
+            if fused:
+                want = {"fold2": 1, "to_modes": 2}
+            before = {k: v.launches for k, v in counters.items()}
+            with _no_torch_fft():
+                fn()
+            got = {k: v.launches - before[k] for k, v in counters.items()}
+            assert got == dict(dict.fromkeys(counters, 0), **want), name
 
 
 @pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
@@ -546,8 +681,8 @@ def test_modes2_kernels_match_plain(dev, monkeypatch, batch):
     want = mode3d.fold_plain(y, geom, batch, axes=2)
     _close(torch.view_as_real(mode3d.fold2_cuda(y, geom, batch)),
            torch.view_as_real(want))
-    spec = _fft(want, "forward", (1, 2)).contiguous()
-    _close(mode3d.truncate_deconvolve2_cuda(spec, op.plan, geom),
+    spec = fft3d.fft_plain(want, (1, 2), "forward")
+    _close(fft3d.fine_to_modes_cuda(want, op.plan, axes=2),
            mode3d.truncate_deconvolve_plain(spec, op.plan, axes=2))
 
 

@@ -181,3 +181,23 @@ def test_fine_grid_guards_match_jax_3d():
     assert tplan.make_plan(tplan.PlanSpec(
         "type_1", "forward", 3, (128, 128, 128), "complex64", 1e-6,
         1)).fine_shape == (256, 256, 256)
+
+
+@pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
+def test_nufft_matches_jax_with_a_long_fine_axis(transform_type):
+    """Modes (8, 8, 4096): the fine grid (16, 16, 8192) has an axis
+    longer than one block's shared memory, which the card's FFT kernel
+    takes in two launches; on the CPU the port's plain stages against the
+    JAX package at 64 points."""
+    grid = (8, 8, 4096)
+    pts = _points(64, 13)
+    rng = np.random.default_rng(14)
+    src = rng.standard_normal(
+        (64, 2) if transform_type == "type_1" else grid + (2,)).astype(
+            np.float32)
+    kw = dict(grid_shape=grid if transform_type == "type_1" else None,
+              transform_type=transform_type)
+    want = np.asarray(tfft.planar.nufft(src, pts, **kw))
+    got = tnt.planar.nufft(torch.from_numpy(src), torch.from_numpy(pts),
+                           **kw)
+    assert _relerr(got, want) <= RTOL

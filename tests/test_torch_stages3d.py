@@ -95,8 +95,8 @@ def test_stages_on_cpu_are_the_plain_versions_3d():
     _, tp, _, tgeom = plans("backward")
     tiles = torch.from_numpy(_tiles(tgeom, 1, 6))
     modes = torch.from_numpy(_modes(1, 7))
-    counters = (mode3d.fold3d_cuda, mode3d.truncate_deconvolve3d_cuda,
-                mode3d.amplify_pad3d_cuda, mode3d.extend_tiles3d_cuda,
+    counters = (mode3d.fold3d_cuda, fft3d.fine_to_modes_cuda,
+                fft3d.modes_to_fine_cuda, mode3d.extend_tiles3d_cuda,
                 fft3d.fft3d_cuda)
     before = [c.launches for c in counters]
     got1 = tfft.dft_truncate_deconvolve_tiled(tiles, tp, tgeom, 1)
@@ -126,7 +126,7 @@ def test_mode3d_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mode3d.fold3d_cuda(torch.from_numpy(_tiles(tgeom, 1, 9)), tgeom, 1)
     with pytest.raises(ValueError, match="CUDA"):
-        mode3d.amplify_pad3d_cuda(torch.from_numpy(_modes(1, 9)), tp, tgeom)
+        fft3d.modes_to_fine_cuda(torch.from_numpy(_modes(1, 9)), tp)
 
 
 # Halo geometries (grid, banded, tile_pref, tiles): the binned level's

@@ -32,7 +32,18 @@ turns (parent, change, change, parent):
 Only the kernels' wrappers are called, so any tree with the rank-3 mode
 stage runs it.
 
---fft     instead times the FFT kernel (``kernels.fft3d.fft3d_cuda``)
+--fft     instead times the rank-3 mode stages on the FFT kernel: the
+          type-2 stage (modes to the fine grid), the type-1 stage (the
+          fine grid to the modes) and the fused route's two-axis stage,
+          at the 3D headline (batch 1 and 3), the large-tile cell and the
+          fused shape, with their launches counted and the SHA-256 of
+          their outputs after adding +0.0 (signed zeros aside), beside
+          the cuFFT route (the plain stage: amplify_pad_plain or
+          truncate_deconvolve_plain around torch.fft) and two bounds (the
+          stage's input and output once; the bytes the pruned passes
+          move). A tree whose stage is amplify_pad3d_cuda or
+          truncate_deconvolve3d/2_cuda around fft3d_cuda runs those.
+          Then the full-grid FFT kernel (``kernels.fft3d.fft3d_cuda``)
           at the 3D fine grids beside torch.fft; with --sweep at each
           launch setting (lines a block 4-32, shared-memory target 48 or
           160 KB).
@@ -79,8 +90,9 @@ def device_ms(fn, kernel=None, calls=20, per_call=1):
     """Device time per call of ``fn``: the CUDA kernels' summed time
     under torch.profiler, / ``calls``. Raises unless the profiler saw
     every launch: exactly ``per_call`` kernels a call, each named with
-    ``kernel``, where it is given (one of the port's wrappers), else the
-    same number of kernels in each call (a library call)."""
+    ``kernel`` (one of the port's wrappers; a tuple: one of those
+    names), where it is given, else the same number of kernels in each
+    call (a library call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -91,7 +103,8 @@ def device_ms(fn, kernel=None, calls=20, per_call=1):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    named = [e for e in events if kernel is not None and kernel in e.name]
+    names = (kernel,) if isinstance(kernel, str) else kernel or ()
+    named = [e for e in events if any(k in e.name for k in names)]
     want = calls * per_call
     if (len(named) != want or len(events) != want) if kernel else (
             not events or len(events) % calls):
@@ -99,6 +112,10 @@ def device_ms(fn, kernel=None, calls=20, per_call=1):
             f"the profiler saw {len(events)} kernels ({len(named)} named "
             f"{kernel!r}) in {calls} calls: "
             f"{sorted({e.name for e in events})}")
+    events.sort(key=lambda e: e.time_range.start)
+    device_ms.per_launch = [
+        sum(e.time_range.elapsed_us() for e in events[i::per_call]) / calls
+        / 1e3 for i in range(per_call)] if kernel else []
     return sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
 
 
@@ -253,6 +270,117 @@ def fft_rows(device, sweep):
         torch.cuda.empty_cache()
 
 
+def sha0(t):
+    """The SHA-256 of ``t`` after adding +0.0 (-0.0 becomes +0.0)."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return sha(t + 0.0)
+
+
+def stage_fns(plan, kind, x):
+    """(fn, kernel names, wrappers) of the tree's ``kind`` mode stage on
+    ``x``: "to_fine" (modes -> fine grid), "to_modes" (fine grid ->
+    modes) or "to_modes2" (the fused route's [B, nf0, nf1, n2] ->
+    modes)."""
+    from tensorflow_nufft_tpu_torch.kernels import fft3d
+    direction = plan.spec.fft_direction
+    if hasattr(fft3d, "modes_to_fine_cuda"):
+        if kind == "to_fine":
+            return ((lambda: fft3d.modes_to_fine_cuda(x, plan)),
+                    ("fft_axis",), (fft3d.modes_to_fine_cuda,))
+        axes = 2 if kind == "to_modes2" else 3
+        return ((lambda: fft3d.fine_to_modes_cuda(x, plan, axes)),
+                ("fft_axis",), (fft3d.fine_to_modes_cuda,))
+    geom = binning.choose_geometry(plan.fine_shape, plan.width, NUM_POINTS)
+    if kind == "to_fine":
+        return ((lambda: fft3d.fft3d_cuda(mode3d.amplify_pad3d_cuda(
+                    x, plan, geom), (1, 2, 3), direction)),
+                ("fft_axis", "amplify_pad3d"),
+                (fft3d.fft3d_cuda, mode3d.amplify_pad3d_cuda))
+    if kind == "to_modes":
+        return ((lambda: mode3d.truncate_deconvolve3d_cuda(fft3d.fft3d_cuda(
+                    x, (1, 2, 3), direction), plan, geom)),
+                ("fft_axis", "truncate_deconvolve3d"),
+                (fft3d.fft3d_cuda, mode3d.truncate_deconvolve3d_cuda))
+    return ((lambda: mode3d.truncate_deconvolve2_cuda(fft3d.fft3d_cuda(
+                x, (1, 2), direction), plan, geom)),
+            ("fft_axis", "truncate_deconvolve3d"),
+            (fft3d.fft3d_cuda, mode3d.truncate_deconvolve2_cuda))
+
+
+def plain_stage(plan, kind, x):
+    """The cuFFT route of a stage: the plain mode end around torch.fft."""
+    from tensorflow_nufft_tpu_torch.kernels import fft3d
+    direction = plan.spec.fft_direction
+    if kind == "to_fine":
+        return lambda: fft3d.fft_plain(mode3d.amplify_pad_plain(x, plan),
+                                       (1, 2, 3), direction)
+    axes = 2 if kind == "to_modes2" else 3
+    return lambda: mode3d.truncate_deconvolve_plain(fft3d.fft_plain(
+        x, (1, 2, 3)[:axes], direction), plan, axes)
+
+
+def stage_bytes(plan, batch, kind):
+    """(bytes of the stage's input and output once, bytes its pruned
+    passes move: each pass's input and output once)."""
+    (n0, n1, n2), (f0, f1, f2) = plan.grid_shape, plan.fine_shape
+    cells = {"to_fine": [n0 * n1 * n2, n0 * n1 * f2, n0 * f1 * f2,
+                         f0 * f1 * f2],
+             "to_modes": [f0 * f1 * f2, f0 * f1 * n2, f0 * n1 * n2,
+                          n0 * n1 * n2],
+             "to_modes2": [f0 * f1 * n2, f0 * n1 * n2, n0 * n1 * n2]}[kind]
+    return (8 * batch * (cells[0] + cells[-1]),
+            8 * batch * sum(a + b for a, b in zip(cells, cells[1:])))
+
+
+def stage_rows(device):
+    """The rank-3 mode stages at the 3D headline (batch 1 and 3), the
+    large-tile cell and the fused shape: hashes, launches, times."""
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    rows = []
+    for grid, batch in (((128, 128, 128), 1), ((128, 128, 128), 3),
+                        ((256, 256, 256), 1)):
+        rows += [(grid, batch, "to_fine", "backward"),
+                 (grid, batch, "to_modes", "forward")]
+    rows.append(((128, 128, 128), 1, "to_modes2", "forward"))
+    for grid, batch, kind, direction in rows:
+        plan = make_plan(PlanSpec("type_1", direction, 3, grid, "complex64",
+                                  1e-6, 1))
+        if kind == "to_fine":
+            x = torch.randn((batch,) + grid + (2,), generator=gen,
+                            device="cuda")
+        else:
+            shape = plan.fine_shape[:2] + (
+                grid[2] if kind == "to_modes2" else plan.fine_shape[2],)
+            x = torch.complex(*(torch.randn((batch,) + shape, generator=gen,
+                                            device="cuda")
+                                for _ in range(2)))
+        fn, names, counters = stage_fns(plan, kind, x)
+        before = sum(c.launches for c in counters)
+        out = fn()
+        launches = sum(c.launches for c in counters) - before
+        lib = plain_stage(plan, kind, x)
+        nbytes, moved = stage_bytes(plan, batch, kind)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        line = (f"stage {kind} modes {grid} fine {plan.fine_shape} batch "
+                f"{batch}: {sha0(out)} launches {launches}, "
+                f"{cuda_ms(fn):.4f} ms, cuFFT route {cuda_ms(lib):.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({nbytes:.4e} B), pruned passes' "
+                f"bound {moved / PEAK_BYTES_PER_S * 1e3:.4f} ms "
+                f"({moved:.4e} B)")
+        if device:
+            try:
+                ms = device_ms(fn, names, per_call=launches)
+                each = " + ".join(f"{t:.4f}" for t in device_ms.per_launch)
+                line += (f", device {ms:.4f} ms ({each}), cuFFT route device "
+                         f"{device_ms(lib):.4f} ms")
+            except RuntimeError as err:
+                line += f", device not measured ({err})"
+        print(line, flush=True)
+        del x, out
+        torch.cuda.empty_cache()
+
+
 def launch(geom, batch, kind):
     """The tree's launch plan where it has one."""
     plan = getattr(mode3d, "halo_launch", None)
@@ -277,6 +405,13 @@ def main():
     if "--fft" in sys.argv:
         sweep = [(c, t * 1024) for c in (4, 8, 16, 32) for t in (48, 160)] \
             if "--sweep" in sys.argv else None
+        from tensorflow_nufft_tpu_torch.kernels import fft3d
+        for cols, target in sweep or [(fft3d.FFT_MAX_COLS,
+                                       fft3d.FFT_SMEM_TARGET)]:
+            fft3d.FFT_MAX_COLS, fft3d.FFT_SMEM_TARGET = cols, target
+            print(f"launch setting: at most {cols} lines a block, shared "
+                  f"memory target {target} B", flush=True)
+            stage_rows("--device" in sys.argv)
         fft_rows("--device" in sys.argv, sweep)
         return
     for case in cases():
