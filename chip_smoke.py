@@ -41,6 +41,27 @@ Phases:
    ``apply_to_slots``/``apply_from_slots`` against ``to_slots``/
    ``from_slots`` of the point-order applies, to 1e-5 of the peak; times
    of ``normal`` against the composed pair.
+5b. The complex API ("complex2d"): with the counters zeroed, complex64
+   ``nufft`` type-1 and type-2 in both directions, ``interp`` and
+   ``spread`` on the 512^2 grid and a training step (x [8, 256, 256]
+   complex and k learnable, a type-2 loss plus an interp loss,
+   ``loss.backward()``); the kernels of TPU rows 2, 6, 11 and 11' must
+   launch. Each output against the planar API on the same data (bit for
+   bit, else within 1e-6 of the peak), the gradients within 1e-6 of the
+   peak; the transforms against the exact NUDFT (< 10 * tol) and the
+   complex128 transforms on the card (the float64 route, err_impl <
+   tol); the complex128 transforms at tol 1e-6 (< 10 * tol) and 1e-12
+   (4096-element subsets, < 1e-10), during which no kernel launches.
+5c. CG-SENSE ("cg_sense") at bench_suite.py's cell (128^2, 8 coils, 128
+   spokes x 256 samples, ramp density, Shepp-Logan, 10 iterations,
+   float32): the composed operator (the plan's ``normal``, "mats")
+   launching one planned spread and interp per iteration and one spread
+   for the right-hand side, the Toeplitz one launching that spread only;
+   each within 2e-3 of the peak of a complex128 CG-SENSE on the card
+   (level "none", no launch), the Toeplitz one of the composed one;
+   Pipe-Menon weights (finite, sum 1, the card's within 1e-4 of the same
+   float32 weights on the CPU, within max(1e-4, 4 * floor_f32) of the
+   float64 ones); times of both reconstructions and both builds.
 6. 3D kernels: at the unbanded 3D geometry, the unplanned spread and
    interp, fold3d and extend_tiles3d against their plain versions on
    the card, with the same 1e-5 bound; the per-slot-window kernels there
@@ -74,7 +95,9 @@ Phases:
    against the port's float64 plain pipeline, where floor_f32 is the
    port's float32 plain pipeline's error against that same float64 one
    (both plain pipelines run on the card, called directly, not through
-   dispatch).
+   dispatch). Then ("complex3d") the complex API's complex64 type-1
+   and type-2 at the headline, launching the kernels of rows 4, 11 and
+   14-19, each equal to the planar API's.
 8. 3D binned kernels: at the binned geometry, the banded spread at B2 =
    2 (row 7), at 4 and with slot-order values (row 8), the banded interp
    (row 13, its chunk- and point-order outputs), the fused spread with
@@ -544,6 +567,15 @@ PHASE_KERNELS = {
     "train1d_type1": ("spread_unplanned_1d", "interp_unplanned_1d"),
     "spread_only_1d": ("spread_unplanned_1d", "interp_unplanned_1d",
                        "interp_deriv_1d"),
+    # The complex API: its complex64 transforms, spread-only ops and
+    # a training step at the 2D headline (rows 2, 6, 11, 11'), its
+    # transforms at the 3D headline (rows 4, 11, 14-19), and CG-SENSE on
+    # the planned 2D pair (rows 1, 10).
+    "complex2d": ("spread_unplanned", "spread_split", "interp_unplanned",
+                  "interp_deriv"),
+    "complex3d": ("spread3d_unplanned", "interp3d_unplanned", "fold3d",
+                  "fine_to_modes", "modes_to_fine", "extend_tiles3d"),
+    "cg_sense": ("spread_planned", "interp_planned"),
 }
 
 
@@ -2813,6 +2845,309 @@ def train_phase_1d(points, dev):
     return launches, cases
 
 
+# ---------------------------------------------------------------------------
+# The complex API, the float64 route and CG-SENSE.
+# ---------------------------------------------------------------------------
+
+def no_launches(label):
+    """Fails unless no kernel launched since the last reset_launches()."""
+    ran = {name: n for name, n in step_launches().items() if n}
+    log(f"{label}: kernel launches {ran or 0}")
+    if ran:
+        raise RuntimeError(f"{label} launched kernels {ran}")
+
+
+def same_as_planar(label, got, want):
+    """Holds ``view_as_real(got)`` to the planar API's output ``want``:
+    bit for bit, or else (logged) within 1e-6 of the peak."""
+    import torch
+    got = torch.view_as_real(got)
+    if torch.equal(got, want):
+        log(f"{label}: equals the planar API bit for bit")
+        return
+    err = rel(got, want)
+    log(f"{label}: NOT bit for bit the planar API: {err:.3e} of the peak "
+        f"(gate < 1e-6)")
+    if not err < 1e-6:
+        raise RuntimeError(f"{label} disagrees with the planar API")
+
+
+def complex_phase_2d(points, z, modes, dev):
+    """The complex API at the 2D headline: complex64 nufft type-1 and
+    type-2 in both directions, interp and spread on the 512^2 grid, and a
+    training step (x [8, 256, 256] and k, loss.backward(), then the
+    spread-only points gradient), counted as one main path; then each
+    held to the planar API, the transforms to the exact NUDFT (< 10 * tol)
+    and to the complex128 transform on the card (the float64 route, <
+    tol), and the complex128 transforms at tol 1e-6 and 1e-12 (exact
+    NUDFT; at 1e-12 on 4096-element subsets, < 1e-10) with no kernel
+    launch."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    grid, fine = (GRID, GRID), (2 * GRID, 2 * GRID)
+    rng = np.random.default_rng(SEED + 12)
+    pts = torch.from_numpy(points).to(dev)
+    c = torch.from_numpy(z).to(dev)
+    f = torch.from_numpy(modes).to(dev)
+    def normal(shape):
+        return torch.from_numpy((rng.standard_normal(shape)
+                                 + 1j * rng.standard_normal(shape)).astype(
+                                     np.complex64)).to(dev)
+    g = normal(fine)
+    x0 = normal((TRAIN_BATCH,) + grid)
+    y = normal((TRAIN_BATCH, NUM_POINTS))
+    dirs = (("forward", -1.0), ("backward", 1.0))
+
+    def transforms():
+        out = {}
+        for direction, _ in dirs:
+            out[("type_1", direction)] = tnt.nufft(
+                c, pts, grid_shape=grid, transform_type="type_1",
+                fft_direction=direction, tol=TOL)
+            out[("type_2", direction)] = tnt.nufft(
+                f, pts, fft_direction=direction, tol=TOL)
+        return out
+
+    def step(x, k):
+        r = torch.view_as_real(tnt.nufft(x, k, tol=TOL) - y)
+        loss = 0.5 * r.square().sum() + torch.view_as_real(
+            tnt.interp(g, k, tol=TOL)).square().sum()
+        loss.backward()
+
+    x = x0.clone().requires_grad_()
+    k = pts.clone().requires_grad_()
+    reset_launches()
+    outs = transforms()
+    interp_out = tnt.interp(g, pts, tol=TOL)
+    spread_out = tnt.spread(c, pts, fine, tol=TOL)
+    step(x, k)
+    torch.cuda.synchronize()
+    launches = read_launches("complex2d")
+    log(f"complex2d launches: {step_launches()}")
+
+    for (ttype, direction), out in outs.items():
+        src = c if ttype == "type_1" else f
+        same_as_planar(f"complex2d {ttype} {direction}", out,
+                       tnt.planar.nufft(
+                           torch.view_as_real(src), pts,
+                           grid_shape=grid if ttype == "type_1" else None,
+                           transform_type=ttype, fft_direction=direction,
+                           tol=TOL))
+    same_as_planar("complex2d interp", interp_out, tnt.planar.interp(
+        torch.view_as_real(g), pts, tol=TOL))
+    same_as_planar("complex2d spread", spread_out, tnt.planar.spread(
+        torch.view_as_real(c), pts, fine, tol=TOL))
+    xp = torch.view_as_real(x0).clone().requires_grad_()
+    kp = pts.clone().requires_grad_()
+    yp = torch.view_as_real(y)
+    loss = 0.5 * (tnt.planar.nufft(xp, kp, tol=TOL) - yp).square().sum()
+    loss = loss + tnt.planar.interp(torch.view_as_real(g), kp,
+                                    tol=TOL).square().sum()
+    loss.backward()
+    for name, got, want in (("x.grad", torch.view_as_real(x.grad), xp.grad),
+                            ("k.grad", k.grad, kp.grad)):
+        err = rel(got, want)
+        log(f"complex2d step {name}: vs the planar API {err:.3e} of the "
+            f"peak (gate < 1e-6)")
+        if not (bool(torch.isfinite(got).all()) and err < 1e-6):
+            raise RuntimeError(f"complex2d step {name} disagrees with the "
+                               f"planar API")
+
+    x64 = pts.double()
+    c64, f64 = c.to(torch.complex128), f.to(torch.complex128)
+    reset_launches()
+    refs = {}
+    for direction, _ in dirs:
+        refs[("type_1", direction)] = tnt.nufft(
+            c64, x64, grid_shape=grid, transform_type="type_1",
+            fft_direction=direction, tol=TOL)
+        refs[("type_2", direction)] = tnt.nufft(
+            f64, x64, fft_direction=direction, tol=TOL)
+    tight = {"type_1": tnt.nufft(c64, x64, grid_shape=grid,
+                                 transform_type="type_1", tol=1e-12),
+             "type_2": tnt.nufft(f64, x64, tol=1e-12)}
+    torch.cuda.synchronize()
+    no_launches("complex2d float64 route")
+    failed = []
+    for (ttype, direction), out in outs.items():
+        sign = dict(dirs)[direction]
+        exact = (exact2d_type1(c64[None], x64, sign, GRID)
+                 if ttype == "type_1"
+                 else exact2d_type2(f64[None], x64, sign, GRID))[0]
+        ref = refs[(ttype, direction)]
+        err_total, err_impl = rel(out, exact), rel(out, ref,
+                                                   float(exact.abs().max()))
+        err64 = rel(ref, exact)
+        log(f"complex2d {ttype} {direction}: err_total {err_total:.3e} "
+            f"(gate < {10 * TOL:g}), err_impl (vs complex128 on the card) "
+            f"{err_impl:.3e} (gate < {TOL:g}); complex128 err_total "
+            f"{err64:.3e} (gate < {10 * TOL:g})")
+        if not (err_total < 10 * TOL and err_impl < TOL
+                and err64 < 10 * TOL):
+            failed.append((ttype, direction))
+    sub = np.random.default_rng(SEED + 13)
+    idx1 = torch.from_numpy(np.sort(sub.choice(GRID * GRID, SUBSET,
+                                               replace=False))).to(dev)
+    idx2 = torch.from_numpy(np.sort(sub.choice(NUM_POINTS, SUBSET,
+                                               replace=False))).to(dev)
+    exact1 = exact_type1_subset(x64, c64, idx1, dev, grid=grid)
+    exact2 = exact_type2_subset(x64, f64, idx2, -1.0, dev, grid=grid)
+    for ttype, got, exact in (
+            ("type_1", tight["type_1"].reshape(-1)[idx1], exact1),
+            ("type_2", tight["type_2"][idx2], exact2)):
+        err = rel(got, exact)
+        log(f"complex2d complex128 {ttype} at tol 1e-12: err_total "
+            f"({SUBSET}-element subset) {err:.3e} (gate < 1e-10)")
+        if not err < 1e-10:
+            failed.append((ttype, "1e-12"))
+    if failed:
+        raise RuntimeError(f"complex2d gates failed: {failed}")
+    cases = {
+        "complex_t1": lambda: tnt.nufft(c, pts, grid_shape=grid,
+                                        transform_type="type_1", tol=TOL),
+        "complex_t2": lambda: tnt.nufft(f, pts, tol=TOL),
+        "complex128_t1": lambda: tnt.nufft(
+            c64, x64, grid_shape=grid, transform_type="type_1", tol=TOL),
+        "complex128_t2": lambda: tnt.nufft(f64, x64, tol=TOL),
+        "complex_step": lambda: step(x0.clone().requires_grad_(),
+                                     pts.clone().requires_grad_()),
+    }
+    for name, fn in cases.items():
+        log(f"time complex2d {name}: {cuda_ms(fn, reps=10):.4f} ms")
+    return launches, cases
+
+
+def complex_phase_3d(points3, z3, modes3, dev):
+    """The complex API at the 3D headline: complex64 nufft type-1 and
+    type-2, counted, each equal to the planar API's."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    pts = torch.from_numpy(points3).to(dev)
+    c = torch.from_numpy(z3).to(dev)
+    f = torch.from_numpy(modes3).to(dev)
+    reset_launches()
+    t1 = tnt.nufft(c, pts, grid_shape=GRID3, transform_type="type_1",
+                   tol=TOL)
+    t2 = tnt.nufft(f, pts, tol=TOL)
+    torch.cuda.synchronize()
+    launches = read_launches("complex3d")
+    same_as_planar("complex3d type_1", t1, tnt.planar.nufft(
+        torch.view_as_real(c), pts, grid_shape=GRID3,
+        transform_type="type_1", tol=TOL))
+    same_as_planar("complex3d type_2", t2, tnt.planar.nufft(
+        torch.view_as_real(f), pts, tol=TOL))
+    return launches
+
+
+# bench_suite.py's cg_sense_10iter_128_8coil_radial cells.
+CG_GRID = (128, 128)
+CG_COILS = 8
+CG_SPOKES, CG_SAMPLES = 128, 256
+CG_ITERS = 10
+CG_RTOL = 2e-3
+
+
+def cg_sense_phase(dev):
+    """CG-SENSE at bench_suite.py's cell: 128^2 image, 8 birdcage coils,
+    128 radial spokes of 256 samples, the ramp density, the Shepp-Logan
+    phantom, 10 iterations, float32. The composed operator (the plan's
+    normal at the "mats" level) and the Toeplitz one, with launch counts
+    (the composed run: one planned spread and interp per iteration and
+    one spread for the right-hand side; the Toeplitz run: that one spread
+    only), each held to a complex128 CG-SENSE on the card (level "none",
+    the float64 route; 2e-3 of the peak) and the Toeplitz one to the
+    composed one (2e-3); Pipe-Menon weights on the trajectory (finite,
+    sum 1, within 1e-4 of the peak of the same float32 weights computed
+    on the CPU, and of the float64 ones within max(1e-4, 4 * floor_f32));
+    times (CUDA events, median of 10) of the reconstructions and of the
+    operators' builds."""
+    import torch
+    from tensorflow_nufft_tpu_torch.kernels import interp, spread
+    from tensorflow_nufft_tpu_torch.models import mri
+    pts = torch.from_numpy(mri.radial_trajectory(CG_SPOKES, CG_SAMPLES)).to(
+        dev)
+    maps = torch.from_numpy(mri.birdcage_maps(CG_COILS, CG_GRID)).to(dev)
+    phantom = torch.from_numpy(mri.shepp_logan(CG_GRID)).to(dev)
+    density = torch.from_numpy(mri.radial_density(CG_SPOKES,
+                                                   CG_SAMPLES)).to(dev)
+
+    def build(toeplitz=False):
+        return mri.SenseNufft(pts, maps, CG_GRID, density=density, tol=TOL,
+                              toeplitz=toeplitz)
+    op, op_t = build(), build(toeplitz=True)
+    if op._t2.level != "mats":
+        raise RuntimeError(f"cg_sense: plan level {op._t2.level}, want "
+                           f"mats")
+    kspace = op.forward(phantom)
+    torch.cuda.synchronize()
+    reset_launches()
+    rec = mri.cg_sense(kspace, op, num_iters=CG_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches("cg_sense")
+    counts = step_launches()
+    want = {spread.spread_planned_cuda.__name__: CG_ITERS + 1,
+            interp.interp_planned_cuda.__name__: CG_ITERS}
+    log(f"cg_sense composed launches: {counts}")
+    if {k: n for k, n in counts.items() if n} != want:
+        raise RuntimeError(f"cg_sense composed: launches {counts}, want "
+                           f"{want}")
+    reset_launches()
+    rec_t = mri.cg_sense(kspace, op_t, num_iters=CG_ITERS)
+    torch.cuda.synchronize()
+    counts = step_launches()
+    log(f"cg_sense Toeplitz launches: {counts}")
+    if {k: n for k, n in counts.items() if n} != {
+            spread.spread_planned_cuda.__name__: 1}:
+        raise RuntimeError(f"cg_sense Toeplitz iterations launched "
+                           f"{counts}")
+    reset_launches()
+    op64 = mri.SenseNufft(pts.double(), maps.double(), CG_GRID,
+                          density=density.double(), tol=TOL)
+    rec64 = mri.cg_sense(kspace.double(), op64, num_iters=CG_ITERS)
+    torch.cuda.synchronize()
+    no_launches("cg_sense complex128 reference")
+    if op64._t2.level != "none":
+        raise RuntimeError("cg_sense complex128 plan is not at level none")
+    err = rel(rec, rec64)
+    err_t = rel(rec_t, rec)
+    err_ph = float(torch.linalg.norm(rec - phantom)
+                   / torch.linalg.norm(phantom))
+    log(f"cg_sense composed vs complex128: {err:.3e} of the peak (gate < "
+        f"{CG_RTOL:g}); Toeplitz vs composed: {err_t:.3e} (gate < "
+        f"{CG_RTOL:g}); composed vs phantom (relative norm): {err_ph:.3e}")
+    # Pipe-Menon: the card's float32 weights against the same float32
+    # algorithm on the CPU (only the atomics' order differs) and against
+    # the float64 weights, at 4x the float32 algorithm's own distance from
+    # them (its floor: 30 fixed-point steps amplify float32 rounding).
+    w = mri.pipe_menon_density(pts, CG_GRID)
+    w64 = mri.pipe_menon_density(pts.double(), CG_GRID)
+    w_cpu = mri.pipe_menon_density(pts.cpu(), CG_GRID)
+    floor = rel(w_cpu, w64.cpu())
+    err_cpu, err_w = rel(w.cpu(), w_cpu), rel(w, w64)
+    gate_w = max(1e-4, 4 * floor)
+    total = float(w.double().sum())
+    log(f"cg_sense pipe_menon_density: sum {total:.7f}; vs the float32 "
+        f"weights on the CPU {err_cpu:.3e} of the peak (gate < 1e-4); vs "
+        f"float64 {err_w:.3e} (gate < {gate_w:.3e}; floor_f32 {floor:.3e})")
+    if not (bool(torch.isfinite(rec).all()) and err < CG_RTOL
+            and err_t < CG_RTOL and bool(torch.isfinite(w).all())
+            and abs(total - 1.0) < 1e-5 and err_cpu < 1e-4
+            and err_w < gate_w):
+        raise RuntimeError("cg_sense gates failed")
+    cases = {
+        "cg_sense_10iter_128_8coil_radial": lambda: mri.cg_sense(
+            kspace, op, num_iters=CG_ITERS),
+        "cg_sense_10iter_128_8coil_radial_toeplitz": lambda: mri.cg_sense(
+            kspace, op_t, num_iters=CG_ITERS),
+        "plan_build": build,
+        "plan_build_toeplitz": lambda: build(toeplitz=True),
+    }
+    for name, fn in cases.items():
+        log(f"time {name}: {cuda_ms(fn, reps=10, warmup=2):.4f} ms per "
+            f"{'reconstruction' if name.startswith('cg') else 'build'}")
+    return launches, cases
+
+
 def profile_phase(label, cases, calls=20):
     """Event median, device busy time and idle share per call of each
     case (label -> zero-argument callable), with its largest device
@@ -2859,12 +3194,22 @@ def main():
         profile_phase("2d", transform_cases(
             op1, op2, pts, strengths, modes_p, (GRID, GRID), {}))
     del op1, op2, pts, strengths, modes_p
+    phases["complex2d"], cases = complex_phase_2d(points, z, modes, dev)
+    if "--profile" in sys.argv:
+        profile_phase("complex2d", cases)
+    torch.cuda.empty_cache()
+    phases["cg_sense"], cases = cg_sense_phase(dev)
+    if "--profile" in sys.argv:
+        profile_phase("cg_sense", cases)
+    del cases
+    torch.cuda.empty_cache()
     points3, z3, modes3 = inputs3d()
     results.update(kernel_phase_3d(points3, dev))
     torch.cuda.empty_cache()
     launches3, op1, adj, pts, strengths, modes_p = end_to_end_3d(
         points3, z3, modes3, dev)
     phases["3d"] = launches3
+    phases["complex3d"] = complex_phase_3d(points3, z3, modes3, dev)
     results.update(kernel_phase_binned(op1, dev))
     phases["3d_slots"] = slots_phase(
         "3d binned level", adj, modes_p[None], strengths[None],

@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tensorflow_nufft_tpu_torch.fft.fft_ops import fft_fine
 from tensorflow_nufft_tpu_torch.kernels import dispatch, fft3d, mode3d
 from tensorflow_nufft_tpu_torch.kernels.binning import (
     BandInfo, BinnedPoints, KernelWeights, TileGeometry)
@@ -163,3 +164,38 @@ def spread_dft_fused(values_pl: torch.Tensor, binned: BinnedPoints,
                                   coords=coords, band=band,
                                   values_slots=values_pl)
     return dft_truncate_deconvolve_tiled(tiles, plan, geom, batch)
+
+
+def _complex(x: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_complex(x.contiguous())
+
+
+def dft_planar(x: torch.Tensor, rank: int, fft_direction: str
+               ) -> torch.Tensor:
+    """DFT over the ``rank`` spatial axes of a planar tensor [B, *spatial,
+    2]: 'forward' exp(-i...), 'backward' exp(+i...), unnormalized. The
+    JAX package's ``dft_planar`` is an XLA contraction; ``torch.fft``
+    serves it here."""
+    return torch.view_as_real(fft_fine(_complex(x), rank, fft_direction))
+
+
+def dft_doubled_planar(x: torch.Tensor, rank: int, forward: bool
+                       ) -> torch.Tensor:
+    """DFT between N-support and the 2N torus, per spatial axis.
+
+    forward=True: [B, *N, 2] -> [B, *2N, 2], the 2N-point forward DFT of
+    the zero-padded input. forward=False: [B, *2N, 2] -> [B, *N, 2], the
+    unnormalized inverse cropped to the leading N samples per axis (fold
+    the 1/(2N)^rank into the spectrum applied between the two). The
+    wings of ``planar.ToeplitzNormal``; the JAX package's
+    ``dft_doubled_planar`` contracts with [N, 2N] twiddle matrices.
+    """
+    dims = tuple(range(1, 1 + rank))
+    z = _complex(x)
+    if forward:
+        return torch.view_as_real(torch.fft.fftn(
+            z, s=[2 * z.shape[d] for d in dims], dim=dims))
+    out = torch.fft.ifftn(z, dim=dims, norm="forward")
+    for d in dims:
+        out = out.narrow(d, 0, z.shape[d] // 2)
+    return torch.view_as_real(out)

@@ -10,6 +10,12 @@ to the hand-written kernel (which raises on what it does not take, such
 as float64); a CPU tensor goes to the plain PyTorch version. There is no
 other branch and no fallback.
 
+Which of these a transform takes at all is ``route``'s rule, decided once
+from the plan spec and the device before anything launches: the kernels
+(float32 on the card), their plain versions (the CPU), or the torch-op
+counterpart of the JAX package's XLA path (``kernels.xla_ops`` and
+``fft.fft_ops``: float64 on the card, and ``backend='xla'``).
+
 The full-grid entry points take and return planar grids [B, *fine, 2],
 whose channel fold (b, re/im) is the tiles' channel order, and window
 or overlap-add the halos with the mode-stage steps of the transforms
@@ -28,6 +34,37 @@ from tensorflow_nufft_tpu_torch.kernels import interp as interp_k
 from tensorflow_nufft_tpu_torch.kernels import spread as spread_k
 from tensorflow_nufft_tpu_torch.kernels.binning import (
     BandInfo, BinnedPoints, KernelWeights, TileGeometry)
+
+
+def route(spec, device) -> str:
+    """The route of a transform of plan spec ``spec`` on ``device``:
+    "kernels", "plain" or "xla".
+
+    The outcome of the JAX package's ``pallas_active`` (its VMEM model
+    aside): the Pallas kernels serve float32 only, and float64 runs the
+    XLA path. Here float32 CUDA tensors run the hand-written kernels and
+    float64 CUDA tensors the XLA-path ops; CPU tensors run the kernels'
+    plain versions (which compute float64 too); ``backend='xla'`` takes
+    the XLA-path ops on any device. ``backend='pallas'`` on float64
+    raises, as in the JAX package; ``'native'`` is not ported.
+    """
+    backend = spec.backend
+    if backend == "native":
+        raise NotImplementedError(
+            "backend='native' (the C++ host engine of the JAX package) is "
+            "not ported yet (ROADMAP.md, Queue 1 item 6); use 'auto' or "
+            "'xla'")
+    if backend == "xla":
+        return "xla"
+    if spec.dtype_name != "complex64":
+        if backend == "pallas":
+            raise ValueError(
+                f"backend='pallas' requires complex64/planar-float32 "
+                f"data and rank in (1, 2, 3); got "
+                f"dtype_name={spec.dtype_name!r}, rank={spec.rank}. "
+                f"Use backend='xla' (or 'auto') instead.")
+        return "xla" if torch.device(device).type == "cuda" else "plain"
+    return "kernels" if torch.device(device).type == "cuda" else "plain"
 
 
 def spread_tiled(values_cm: Optional[torch.Tensor], binned: BinnedPoints,

@@ -15,6 +15,11 @@ written with the differentiable cores themselves, so a transform has a
 second derivative. The spread-only ops' source gradient is the swapped
 op and their points gradient the derivative-kernel interp
 (``dispatch.interp_deriv``), which has no gradient of its own.
+
+Each transform takes the route of ``dispatch.route``: the tiled kernels
+(or their plain versions), or, for float64 on the card and
+``backend='xla'``, the JAX package's XLA path in torch ops
+(``_execute_xla``), on the complex view of the planar tensors.
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from tensorflow_nufft_tpu_torch.fft.fft_ops import (
+    amplify, deconvolve, fft_fine)
 from tensorflow_nufft_tpu_torch.fft.planar_fft import (
     amplify_pad_dft_tiled, dft_truncate_deconvolve_tiled)
-from tensorflow_nufft_tpu_torch.kernels import binning, dispatch
+from tensorflow_nufft_tpu_torch.kernels import binning, dispatch, xla_ops
 from tensorflow_nufft_tpu_torch.kernels.torch_ops import (
     fold_and_rescale_split)
 from tensorflow_nufft_tpu_torch.ops.core import _mode_grid, _replace
@@ -71,6 +78,8 @@ def _execute_planar(source: torch.Tensor, points: torch.Tensor,
     source = source.contiguous()
     batch = source.shape[0]
     check_fine_grid_size(plan, 2 * batch)    # planar: re/im channel pair
+    if dispatch.route(spec, source.device) == "xla":
+        return _execute_xla(source, points, plan)
     geom, binned = bin_for_plan(points, plan)
     if spec.transform_type == "type_1":
         if spec.spread_only:
@@ -84,6 +93,31 @@ def _execute_planar(source: torch.Tensor, points: torch.Tensor,
     tiles = amplify_pad_dft_tiled(source, plan, geom)
     values = dispatch.interp_tiled(tiles, binned, geom, plan)
     return _unfold(values, batch)
+
+
+def _execute_xla(source: torch.Tensor, points: torch.Tensor,
+                 plan) -> torch.Tensor:
+    """``_execute_planar`` on the XLA-path ops: the JAX package's
+    ``ops.core._execute`` on the complex view of ``source``."""
+    spec = plan.spec
+    z = torch.view_as_complex(source)
+    points_resc = fold_and_rescale_split(points, plan.fine_shape,
+                                         spec.points_range)
+    indices, kernels = xla_ops.spread_geometry(points_resc, plan)
+    if spec.transform_type == "type_1":
+        fine = xla_ops.spread_xla(z, indices, kernels, plan)
+        if spec.spread_only:
+            out = fine * plan.kernel_scale
+        else:
+            out = deconvolve(fft_fine(fine, plan.rank, spec.fft_direction),
+                             plan)
+    elif spec.spread_only:
+        out = xla_ops.interp_xla(z, indices, kernels, plan) \
+            * plan.kernel_scale
+    else:
+        grid = fft_fine(amplify(z, plan), plan.rank, spec.fft_direction)
+        out = xla_ops.interp_xla(grid, indices, kernels, plan)
+    return torch.view_as_real(out)
 
 
 def _swapped_type(spec: PlanSpec) -> str:
@@ -195,16 +229,33 @@ def _spread_only_points_grad(source, points, cotangent, spec: PlanSpec):
         grid_side, pts_side = source, cotangent    # [B, *grid, 2], [B, M, 2]
     else:
         grid_side, pts_side = cotangent, source
-    batch = grid_side.shape[0]
-    geom, binned = bin_for_plan(points, plan)
-    tiles = dispatch.extend(grid_side, geom)
     grads = []
-    for d in range(plan.rank):
-        aux = _unfold(dispatch.interp_deriv(tiles, binned, geom, plan, d),
-                      batch)                             # [B, M, 2]
+    for d, aux in enumerate(_deriv_interps(grid_side, points, plan)):
         factor = -plan.kernel_scale * plan.fine_shape[d] / (2.0 * np.pi)
         grads.append((pts_side * aux).sum(dim=(0, 2)) * factor)
     return torch.stack(grads, dim=-1).to(points.dtype)
+
+
+def _deriv_interps(grid_side: torch.Tensor, points: torch.Tensor, plan):
+    """Per axis d, the planar grid [B, *grid, 2] interpolated at the
+    points with phi' on axis d: [B, M, 2] each, on the route of
+    ``dispatch.route``."""
+    batch = grid_side.shape[0]
+    if dispatch.route(plan.spec, grid_side.device) == "xla":
+        points_resc = fold_and_rescale_split(points, plan.fine_shape,
+                                             plan.spec.points_range)
+        fine = torch.view_as_complex(grid_side.contiguous())
+        for d in range(plan.rank):
+            indices, kernels = xla_ops.spread_geometry(points_resc, plan,
+                                                       deriv_axis=d)
+            yield torch.view_as_real(
+                xla_ops.interp_xla(fine, indices, kernels, plan))
+        return
+    geom, binned = bin_for_plan(points, plan)
+    tiles = dispatch.extend(grid_side, geom)
+    for d in range(plan.rank):
+        yield _unfold(dispatch.interp_deriv(tiles, binned, geom, plan, d),
+                      batch)
 
 
 def spread_only_core_planar(source: torch.Tensor, points: torch.Tensor,

@@ -1,5 +1,12 @@
 """User-facing options."""
 
-from tensorflow_nufft_tpu_torch.options.options import Options, PointsRange
+from tensorflow_nufft_tpu_torch.options.options import (
+    DebuggingOptions,
+    FftwOptions,
+    FftwPlanningRigor,
+    Options,
+    PointsRange,
+)
 
-__all__ = ["Options", "PointsRange"]
+__all__ = ["Options", "DebuggingOptions", "FftwOptions",
+           "FftwPlanningRigor", "PointsRange"]

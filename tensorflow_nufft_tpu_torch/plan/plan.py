@@ -204,6 +204,7 @@ class PlanSpec:
     points_range: int              # 0 strict / 1 extended / 2 infinite
     spread_only: bool = False
     upsampling_factor: Optional[float] = None
+    backend: str = "auto"          # 'auto' | 'xla' | 'pallas' | 'native'
     kernel_evaluation_method: str = "auto"  # 'auto' | 'direct' | 'horner'
 
 

@@ -8,9 +8,12 @@ Counterpart of ``tensorflow_nufft_tpu.planar`` for ranks 1, 2 and 3:
 The entry points run on the CUDA card unless the caller asks for the
 CPU: tensors stay on their device, and numpy arrays or lists go to the
 card unless ``device=`` says otherwise (see ``utils.dtypes.
-entry_tensors``). On a CUDA tensor the spread/interp stages, and at rank
-3 the mode stages and their FFT, run the hand-written Hopper kernels
-(float32 only); on a CPU tensor their plain PyTorch versions.
+entry_tensors``). On a float32 CUDA tensor the spread/interp stages,
+and at rank 3 the mode stages and their FFT, run the hand-written Hopper
+kernels; on a CPU tensor their plain PyTorch versions. Float64 on the
+card, and ``Options(backend='xla')`` anywhere, run the torch-op
+counterpart of the JAX package's XLA path (``kernels.dispatch.route``).
+``ToeplitzNormal`` is the Toeplitz-embedded normal operator.
 
 Gradients: ``nufft``, ``interp`` and ``spread`` are differentiable in
 ``source`` and ``points``, ``PlannedNufft`` in its source (through
@@ -29,11 +32,11 @@ import numpy as np
 import torch
 
 from tensorflow_nufft_tpu_torch.fft.planar_fft import (
-    amplify_pad_dft_tiled, spread_dft_fused)
+    amplify_pad_dft_tiled, dft_doubled_planar, dft_planar, spread_dft_fused)
 from tensorflow_nufft_tpu_torch.kernels import binning, dispatch
 from tensorflow_nufft_tpu_torch.ops.nufft_ops import (
     VALID_FFT_DIRECTIONS, VALID_TRANSFORM_TYPES, _apply_batched,
-    _canonical_grid_shape, _validate_enum)
+    _canonical_grid_shape, _validate_enum, check_points_range)
 from tensorflow_nufft_tpu_torch.ops.planar_core import (
     bin_for_plan, nufft_core_planar, spread_only_core_planar)
 from tensorflow_nufft_tpu_torch.options.options import Options
@@ -140,7 +143,8 @@ def nufft(source,
     fft_direction = _validate_enum(
         fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
     return _run(nufft_core_planar, transform_type, fft_direction, False,
-                source, points, grid_shape, tol, options, device)
+                source, points, grid_shape, tol, options, device,
+                check_range=True)
 
 
 def interp(source, points, tol: float = 1e-6,
@@ -164,8 +168,11 @@ def spread(source, points, grid_shape, tol: float = 1e-6,
 
 
 def _run(core_fn, transform_type, fft_direction, spread_only, source,
-         points, grid_shape, tol, options, device) -> torch.Tensor:
-    """Validates, plans and runs ``core_fn`` over the broadcast batch."""
+         points, grid_shape, tol, options, device, check_range=False
+         ) -> torch.Tensor:
+    """Validates, plans and runs ``core_fn`` over the broadcast batch;
+    with ``check_range`` (``nufft``), the points-range check where
+    ``options.debugging`` asks for it."""
     options = options or Options()
     source, points = entry_tensors(source, points, device=device)
     _check_planar_inputs(source, points)
@@ -173,6 +180,8 @@ def _run(core_fn, transform_type, fft_direction, spread_only, source,
     _check_rank(rank)
     grid_shape, elem_rank, out_elem_shape = _planar_shapes(
         source, points, grid_shape, transform_type)
+    if check_range and options.debugging.check_points_range:
+        check_points_range(points, options)
     spec = PlanSpec(
         transform_type=transform_type,
         fft_direction=fft_direction,
@@ -183,6 +192,7 @@ def _run(core_fn, transform_type, fft_direction, spread_only, source,
         points_range=int(options.points_range),
         spread_only=spread_only,
         upsampling_factor=None if spread_only else options.upsampling_factor,
+        backend=options.backend,
         kernel_evaluation_method=options.kernel_evaluation_method,
     )
     warn_if_tol_clamped(tol, spec.dtype_name, options.show_warnings)
@@ -256,9 +266,10 @@ class PlannedNufft:
       coarse axis-0 geometry with its axis-0 band (``band_info``), which
       the banded kernels use; a band that degenerates to the whole
       extended tile re-plans on the unbanded geometry.
-    - "none" for float64 points (the JAX package's Pallas path, like the
-      port's kernels, is float32 only): applies run ``planar.nufft`` and
-      slot order is point order.
+    - "none" for float64 points and ``backend='xla'`` (the JAX
+      package's Pallas path, like the port's kernels, is float32 only;
+      ``backend='pallas'`` on float64 raises): applies run
+      ``planar.nufft`` and slot order is point order.
 
     Each call then runs only the value-dependent work. Besides
     ``__call__`` and ``adjoint()``, the slot surface of iterative
@@ -317,6 +328,7 @@ class PlannedNufft:
             dtype_name=dtype_name(points.dtype), tol=float(tol),
             points_range=int(options.points_range), spread_only=False,
             upsampling_factor=options.upsampling_factor,
+            backend=options.backend,
             kernel_evaluation_method=options.kernel_evaluation_method)
         warn_if_tol_clamped(tol, self.spec.dtype_name,
                             options.show_warnings)
@@ -324,7 +336,9 @@ class PlannedNufft:
         self._adjoint = None
         self.geom = self.binned = self.weights = self.coords = None
         self.band_info = None
-        if points.dtype != torch.float32:
+        if (dispatch.route(self.spec, points.device) == "xla"
+                or points.dtype != torch.float32):
+            # The JAX package plans only what its Pallas kernels serve.
             self.level = "none"
             return
         plan, m = self.plan, int(points.shape[0])
@@ -682,3 +696,118 @@ class _FromSlots(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cotangent):
         return _ToSlots.apply(cotangent, ctx.op), None
+
+
+def pmul(values, phase) -> torch.Tensor:
+    """Planar complex multiply: values [..., 2] * phase [..., 2]
+    (broadcasting; ``models.mri.pmul`` is this function)."""
+    vr, vi = values[..., 0], values[..., 1]
+    pr, pi = phase[..., 0], phase[..., 1]
+    return torch.stack([vr * pr - vi * pi, vr * pi + vi * pr], dim=-1)
+
+
+class ToeplitzNormal:
+    """Toeplitz-embedded normal operator ``A^H W A``.
+
+    Counterpart of ``tensorflow_nufft_tpu.planar.ToeplitzNormal``.
+    ``A^H W A`` is shift-invariant on the mode grid: convolution with
+    ``t[d] = sum_j w_j e^{+/- i omega_j . d}``, one planar type-1 NUFFT of
+    the weights onto the doubled grid, in the opposite direction to A,
+    computed at construction. Each apply is then pad -> 2N-point DFT ->
+    multiply -> cropped inverse DFT (``torch.fft``, the JAX package's XLA
+    contractions): no spread or interp runs.
+
+    The spectrum is kept at the points' precision (float32 or float64):
+    truncating a float64 pipeline to float32 would stall CG far above the
+    requested tolerance.
+
+    Args:
+        points: [M, rank] radians.
+        grid_shape: the image (mode) grid N.
+        weights: optional [M] real per-point weights (density
+            compensation); ones by default.
+        fft_direction: the direction of the forward model A.
+        tol: accuracy of the kernel-evaluating NUFFT.
+        device: where the operator lives (as ``PlannedNufft``'s).
+
+    Apply: ``op(source)``, planar [B, *grid, 2] -> [B, *grid, 2];
+    differentiable (the operator is its own transpose).
+    """
+
+    def __init__(self, points, grid_shape, weights=None,
+                 fft_direction: str = "forward", tol: float = 1e-6,
+                 options: Optional[Options] = None, device=None):
+        points, = entry_tensors(points, device=device)
+        if points.ndim != 2:
+            raise ValueError(
+                f"ToeplitzNormal takes a single [M, rank] point set, "
+                f"got shape {tuple(points.shape)}")
+        fft_direction = _validate_enum(
+            fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
+        self.grid_shape = _canonical_grid_shape(grid_shape)
+        self.rank = rank = int(points.shape[-1])
+        if len(self.grid_shape) != rank:
+            raise ValueError(
+                f"grid_shape must represent a rank-{rank} shape. "
+                f"Received: {self.grid_shape}")
+        m = int(points.shape[0])
+        if weights is None:
+            w = torch.ones(m, dtype=points.dtype, device=points.device)
+        else:
+            w = as_tensor(weights, dtype=points.dtype, device=points.device)
+            if tuple(w.shape) != (m,):
+                raise ValueError(
+                    f"weights must have shape [{m}], got {tuple(w.shape)}")
+        doubled = tuple(2 * n for n in self.grid_shape)
+        # t[d] = sum_j w_j e^{+i omega d} for a 'forward' A: the type-1
+        # NUFFT with the opposite direction.
+        t1_dir = "backward" if fft_direction == "forward" else "forward"
+        t = nufft(torch.stack([w, torch.zeros_like(w)], dim=-1), points,
+                  grid_shape=doubled, transform_type="type_1",
+                  fft_direction=t1_dir, tol=tol, options=options)
+        # CMCL modes n' in [-N, N) -> spatial offsets on the 2N torus: roll
+        # by -N per axis, zeroing the never-referenced offset -N (index N
+        # after the roll); on the host in float64, as the JAX package.
+        t_np = t.detach().cpu().numpy().astype(np.float64)
+        for d in range(rank):
+            n = self.grid_shape[d]
+            t_np = np.roll(t_np, -n, axis=d)
+            idx = [slice(None)] * t_np.ndim
+            idx[d] = n
+            t_np[tuple(idx)] = 0.0
+        spectrum = dft_planar(
+            torch.as_tensor(t_np[None], device=points.device).to(
+                points.dtype), rank, "forward")[0]
+        # The inverse DFT's normalization, folded in float64.
+        self.spectrum = (spectrum.double() / float(np.prod(doubled))).to(
+            points.dtype)
+
+    def _apply(self, source: torch.Tensor) -> torch.Tensor:
+        z = dft_doubled_planar(source.to(self.spectrum.dtype), self.rank,
+                               forward=True)              # [B, *2N, 2]
+        out = dft_doubled_planar(pmul(z, self.spectrum), self.rank,
+                                 forward=False)
+        return out.to(source.dtype)
+
+    def __call__(self, source) -> torch.Tensor:
+        source = as_tensor(source, device=self.spectrum.device)
+        expect = self.rank + 2
+        if source.ndim != expect or source.shape[-1] != 2:
+            raise ValueError(
+                f"ToeplitzNormal expects [B, *grid, 2] planar input "
+                f"of rank {expect}, got shape {tuple(source.shape)}")
+        return _ToeplitzCall.apply(source, self)
+
+
+class _ToeplitzCall(torch.autograd.Function):
+    """A^H W A with real W is self-adjoint, so its planar-real transpose
+    is itself (JAX ``_toeplitz_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, source, op):
+        ctx.op = op
+        return op._apply(source)
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        return _ToeplitzCall.apply(cotangent, ctx.op), None

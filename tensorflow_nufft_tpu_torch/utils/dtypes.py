@@ -1,18 +1,31 @@
-"""Dtype and device helpers of the planar API."""
+"""Dtype and device helpers of the entry points."""
 
 import numpy as np
 import torch
 
 FLOAT_DTYPES = (torch.float32, torch.float64)
+COMPLEX_DTYPES = (torch.complex64, torch.complex128)
+
+_REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+_NAMES = {torch.float32: "complex64", torch.float64: "complex128"}
+
+
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Float dtype of the precision of a complex (or float) dtype."""
+    if dtype in _REAL_OF:
+        return _REAL_OF[dtype]
+    if dtype in FLOAT_DTYPES:
+        return dtype
+    raise TypeError(f"Expected a complex or float dtype, got {dtype}.")
 
 
 def dtype_name(dtype: torch.dtype) -> str:
-    """Plan dtype name ('complex64' / 'complex128') of a planar float
+    """Plan dtype name ('complex64' / 'complex128') of a float or complex
     dtype."""
-    if dtype == torch.float32:
-        return "complex64"
-    if dtype == torch.float64:
-        return "complex128"
+    if dtype in _REAL_OF:
+        dtype = _REAL_OF[dtype]
+    if dtype in _NAMES:
+        return _NAMES[dtype]
     raise TypeError(f"Expected float32 or float64, got {dtype}.")
 
 

@@ -590,12 +590,74 @@ def test_numpy_input_runs_on_the_card(dev):
     assert tnt.PlannedNufft(pts, (16, 16, 64)).device.type == "cuda"
 
 
+_ALL_COUNTERS = (spread.spread_planned_cuda, spread.spread_unplanned_cuda,
+                 spread.spread_banded_cuda, spread.spread_dfta_cuda,
+                 interp.interp_planned_cuda, interp.interp_unplanned_cuda,
+                 interp.interp_deriv_cuda, interp.interp_banded_cuda,
+                 mode3d.fold3d_cuda, mode3d.extend_tiles3d_cuda,
+                 mode3d.fold2_cuda, fft3d.modes_to_fine_cuda,
+                 fft3d.fine_to_modes_cuda)
+
+
 def test_float64_on_cuda_raises(dev):
+    """Float64 CUDA tensors no longer raise: they take the float64 route
+    (the XLA-path ops), meet the NUDFT at 10 * tol and launch no kernel,
+    through the planar and the complex API, both types, ranks 2 and 3."""
+    rng = np.random.default_rng(7)
+    for grid in ((32, 32), (8, 12, 16)):
+        pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (300, len(grid)))
+                               ).to(dev)
+        assert tnt.PlannedNufft(pts, grid).level == "none"
+        for transform_type in ("type_1", "type_2"):
+            src = torch.from_numpy(rng.standard_normal(
+                (300, 2) if transform_type == "type_1" else grid + (2,))
+            ).to(dev)
+            kw = dict(grid_shape=grid if transform_type == "type_1"
+                      else None, transform_type=transform_type)
+            before = [c.launches for c in _ALL_COUNTERS]
+            got = tnt.planar.nufft(src, pts, tol=1e-9, **kw)
+            got_c = tnt.nufft(torch.view_as_complex(src), pts, tol=1e-9,
+                              **kw)
+            assert [c.launches for c in _ALL_COUNTERS] == before
+            assert got.dtype == torch.float64 and got.is_cuda
+            oracle = tnt.planar.nudft(src, pts, **kw)
+            for out in (got, torch.view_as_real(got_c)):
+                err = float((out - oracle).abs().max() / oracle.abs().max())
+                assert err <= 1e-8
+
+
+def test_pallas_backend_on_float64_raises(dev):
     pts = torch.rand(100, 2, dtype=torch.float64, device=dev)
     src = torch.rand(100, 2, dtype=torch.float64, device=dev)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="backend='pallas' requires"):
         tnt.planar.nufft(src, pts, grid_shape=(32, 32),
-                         transform_type="type_1")
+                         transform_type="type_1",
+                         options=tnt.Options(backend="pallas"))
+
+
+@pytest.mark.parametrize("grid", ((64, 96), (16, 16, 64)))
+@pytest.mark.parametrize("direction", ("forward", "backward"))
+@pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
+def test_complex64_equals_planar_on_cuda(dev, transform_type, direction,
+                                         grid):
+    """The complex API's complex64 transform is the planar one on the
+    card (the same kernels), bit for bit."""
+    rng = np.random.default_rng(8)
+    m = 3000
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, len(grid))).astype(
+        np.float32)).to(dev)
+    shape = (2, m) if transform_type == "type_1" else (2,) + grid
+    src = torch.from_numpy((rng.standard_normal(shape)
+                            + 1j * rng.standard_normal(shape)).astype(
+                                np.complex64)).to(dev)
+    kw = dict(grid_shape=grid if transform_type == "type_1" else None,
+              transform_type=transform_type, fft_direction=direction)
+    before = interp.interp_unplanned_cuda.launches
+    got = tnt.nufft(src, pts, **kw)
+    assert interp.interp_unplanned_cuda.launches == before + (
+        transform_type == "type_2")
+    want = tnt.planar.nufft(torch.view_as_real(src), pts, **kw)
+    assert torch.equal(torch.view_as_real(got), want)
 
 
 # The binned plan level: z-ordered rank-3 binning with an axis-0 band

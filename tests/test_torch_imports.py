@@ -37,7 +37,10 @@ def test_sources_import_no_jax(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, tensorflow_nufft_tpu_torch as t; "
-            "t.planar.PlannedNufft; "
+            "import tensorflow_nufft_tpu_torch.kernels.xla_ops; "
+            "import tensorflow_nufft_tpu_torch.fft.fft_ops; "
+            "t.planar.PlannedNufft; t.planar.ToeplitzNormal; t.nufft; "
+            "t.models.mri.SenseNufft; t.models.mri.cg_sense; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tensorflow_nufft_tpu', 'pydantic')]; "
             "assert not bad, bad")
