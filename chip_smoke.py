@@ -10,6 +10,9 @@ entry points a user calls, on the card, with no JAX:
   65,536 modes and 16,384 points;
 - 2D: bench.py's headline, 256^2 modes, 65,536 uniform points, tol 1e-6,
   seed 42;
+- per-batch and type-3: bench_suite.py's 2d_t2_256_200k_b16_perbatch
+  (16 trajectories of 200,000 points at 256^2; phase 5d) and its three
+  type-3 cells (phase 5e), at bench_suite's sizes;
 - 3D: bench_suite.py's 3d_t1_128_800k / 3d_t2_128_800k, 128^3 modes,
   800,000 uniform points, tol 1e-6, seed 42, batch 1 (fine grid 256^3).
   The unplanned transforms tile it in 1024 tiles of ext (24, 24, 72),
@@ -62,6 +65,28 @@ Phases:
    Pipe-Menon weights (finite, sum 1, the card's within 1e-4 of the same
    float32 weights on the CPU, within max(1e-4, 4 * floor_f32) of the
    float64 ones); times of both reconstructions and both builds.
+5d. Per-batch trajectories ("perbatch", bench_suite.py's
+   2d_t2_256_200k_b16_perbatch: default_rng(7), 16 trajectories of
+   200,000 points, 16 images of 256^2, tol 1e-6) through
+   planar.BatchedPlannedNufft: every shard at the "binned" level (its
+   MATS_BYTES_BUDGET // 16 share), so one type-2 apply and one apply of
+   the adjoint batch launch the unbanded interp and spread 16 times
+   each. Both outputs equal the loop of single plans bit for bit; on
+   trajectories 0 and 15 err_total < 10 * tol (exact NUDFT, 4096-element
+   subsets) and err_impl < tol (float64 route); the backward is the
+   adjoint batch; an inner batch axis equals two applies; the two
+   kernels held to their plain versions at a shard's geometry; times.
+5e. Type-3 ("type3", bench_suite.py's 2d_t3_200k_200k, 3d_t3_500k_500k
+   and 3d_t3_500k_500k_unplanned: default_rng(7), M = K = 200,000 at
+   t_range 64 and 500,000 at 16, tol 1e-6) through planar.Type3Plan and
+   planar.nufft_type3: each stage's level and geometry printed, one apply
+   counted (the outer spread, the 3D fold, the inner interp and at 3D
+   its mode stage); gates against the float32 plain pipeline (< 10 *
+   tol), the exact type-3 NUDFT on 4096 targets and the complex128
+   Type3Plan (the float64 route, no launch) at the floor rule of phase
+   7, complex64 Type3Plan within the same gates, the adjoint identity
+   (1e-5) and the backward equal to adjoint() bit for bit; each stage
+   kernel held to its plain version at the cell's geometry; times.
 6. 3D kernels: at the unbanded 3D geometry, the unplanned spread and
    interp, fold3d and extend_tiles3d against their plain versions on
    the card, with the same 1e-5 bound; the per-slot-window kernels there
@@ -500,6 +525,36 @@ KERNELS = {
                                f"{_PS}:638", "train1d"),
     "interp_unplanned_1d_b8": ("interp.interp_unplanned_cuda", "interp.cu",
                                f"{_PI}:218", "train1d"),
+    # The per-batch cell (16 trajectories of 200,000 points at 256^2):
+    # each shard's dense matrices (1.9e8 B) exceed its 16 MiB share, so
+    # the JAX shards stream coords; their 512^2 tile array stays resident
+    # (rows 2 and 11), the port's rank-2 "binned" level.
+    "spread2d_binned_perbatch": ("spread.spread_unplanned_cuda",
+                                 "spread.cu", f"{_PS}:582", "perbatch"),
+    "interp2d_binned_perbatch": ("interp.interp_unplanned_cuda",
+                                 "interp.cu", f"{_PI}:218", "perbatch"),
+    # Type-3. 2D (200k -> 200k, fine 288^2, inner 576^2): both stages'
+    # matrices (1.8e8 + 2.1e8 B) exceed the shared budget, so the outer
+    # spread streams coords (resident: row 2) and the inner type-2 keeps
+    # its matrices (resident: row 10). 3D (500k -> 500k, fine 72^3, inner
+    # 144^3): the inner type-2 (3.1e8 B) does not fit alone, so the
+    # outer spread keeps its matrices (per tile: row 3) and the inner
+    # one takes the banded binned level (row 13, band 12), with the
+    # outer fold (row 17) and the inner mode stage (rows 14-16).
+    "spread_t3_2d": ("spread.spread_unplanned_cuda", "spread.cu",
+                     f"{_PS}:582", "type3_2d"),
+    "interp_t3_2d": ("interp.interp_planned_cuda", "interp.cu",
+                     f"{_PI}:152", "type3_2d"),
+    "spread_t3_3d": ("spread.spread_planned_cuda", "spread.cu",
+                     f"{_PS}:1011", "type3_3d"),
+    "fold3d_t3": ("mode3d.fold3d_cuda", "mode3d.cu", f"{_PD}:346,362,384",
+                  "type3_3d"),
+    "interp_t3_3d": ("interp.interp_banded_cuda", "interp_banded.cu",
+                     f"{_PI}:281", "type3_3d"),
+    "modes_to_fine_t3": ("fft3d.modes_to_fine_cuda", "fft3d.cu",
+                         f"{_PD}:222,246,261", "type3_3d"),
+    "extend_tiles3d_t3": ("mode3d.extend_tiles3d_cuda", "mode3d.cu",
+                          f"{_PD}:222,246,261", "type3_3d"),
 }
 # Wrapper times of the block-per-tile spread and interp kernels that the
 # row-slab kernels replaced, at the same shapes, as PERF.md section 6
@@ -576,6 +631,14 @@ PHASE_KERNELS = {
     "complex3d": ("spread3d_unplanned", "interp3d_unplanned", "fold3d",
                   "fine_to_modes", "modes_to_fine", "extend_tiles3d"),
     "cg_sense": ("spread_planned", "interp_planned"),
+    # The per-batch cell (one apply and one adjoint apply: 16 launches
+    # each) and the type-3 cells (one apply each).
+    "perbatch": ("spread2d_binned_perbatch", "interp2d_binned_perbatch"),
+    "type3_2d": ("spread_t3_2d", "interp_t3_2d"),
+    "type3_3d": ("spread_t3_3d", "fold3d_t3", "interp_t3_3d",
+                 "modes_to_fine_t3", "extend_tiles3d_t3"),
+    "type3_3d_unplanned": ("spread_t3_3d", "fold3d_t3", "interp_t3_3d",
+                           "modes_to_fine_t3", "extend_tiles3d_t3"),
 }
 
 
@@ -3148,6 +3211,477 @@ def cg_sense_phase(dev):
     return launches, cases
 
 
+# bench_suite.py's 2d_t2_256_200k_b16_perbatch cell (nufft_case,
+# bench_suite.py:206-260, registered at :696-697): 16 trajectories of
+# 200,000 points, one per 256^2 image.
+PB_GRID = (256, 256)
+PB_BATCH = 16
+PB_POINTS = 200_000
+
+
+def perbatch_phase(dev):
+    """bench_suite.py's 2d_t2_256_200k_b16_perbatch through
+    planar.BatchedPlannedNufft: default_rng(7) points [16, 200000, 2] and
+    images [16, 256, 256] (complex64, planar), tol 1e-6, type-2 forward.
+    Each shard's level ("binned" at MATS_BYTES_BUDGET // 16) and geometry
+    printed with the build time; one type-2 apply and one apply of the
+    adjoint batch (type-1 backward, seeded values) counted as the main
+    path: 16 unbanded interps and 16 unbanded spreads. Gates: both
+    outputs equal the loop of PlannedNufft(points[i], budget // 16) bit
+    for bit; on trajectories 0 and 15 err_total < 10 * tol against the
+    exact NUDFT (complex128 on the card, 4096 seeded points or modes) and
+    err_impl < tol against the float64 route; a backward through the op
+    gives the adjoint batch's output; an inner batch axis [16, 2, ...]
+    equals two applies. The rank-2 binned kernels held to their plain
+    versions at shard 0's geometry; times (CUDA events, median of 25)."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+    rng = np.random.default_rng(7)
+    points = rng.uniform(-np.pi, np.pi, (PB_BATCH, PB_POINTS, 2)).astype(
+        np.float32)
+    shape = (PB_BATCH,) + PB_GRID
+    z = (rng.standard_normal(shape)
+         + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    sub = np.random.default_rng(SEED + 14)
+    c = (sub.standard_normal((PB_BATCH, PB_POINTS))
+         + 1j * sub.standard_normal((PB_BATCH, PB_POINTS))).astype(
+             np.complex64)
+    pts = torch.from_numpy(points).to(dev)
+    x = torch.view_as_real(torch.from_numpy(z)).to(dev)
+    cp = torch.view_as_real(torch.from_numpy(c)).to(dev)
+
+    def build():
+        return planar.BatchedPlannedNufft(pts, PB_GRID, tol=TOL)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    op = build()
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - start) * 1e3
+    adj = op.adjoint()
+    for i, sh in enumerate(op._shards):
+        g = sh.geom
+        log(f"perbatch shard {i}: level {sh.level}, fine {g.fine_shape} "
+            f"tiles {g.tiles} ext {g.ext} chunk {g.chunk} chunks "
+            f"{g.num_chunks} (used {int(sh.binned.tile_bounds[-1])}), "
+            f"slots {g.num_slots}")
+    if any(sh.level != "binned" for sh in op._shards):
+        raise RuntimeError("perbatch: a shard is not at the binned level")
+    reset_launches()
+    with no_plain_calls("perbatch"):
+        y = op(x)
+        xt = adj(cp)
+        torch.cuda.synchronize()
+    launches = read_launches("perbatch")
+    counts = {k: n for k, n in step_launches().items() if n}
+    want = {interp.interp_unplanned_cuda.__name__: PB_BATCH,
+            spread.spread_unplanned_cuda.__name__: PB_BATCH}
+    log(f"perbatch launches (one apply of each type): {counts}")
+    if counts != want:
+        raise RuntimeError(f"perbatch launches {counts}, want {want}")
+
+    budget = binning.MATS_BYTES_BUDGET // PB_BATCH
+    for i in range(PB_BATCH):
+        one = planar.PlannedNufft(pts[i], PB_GRID, tol=TOL,
+                                  payload_budget_bytes=budget)
+        if not (torch.equal(y[i], one(x[i][None])[0])
+                and torch.equal(xt[i], one.adjoint()(cp[i][None])[0])):
+            raise RuntimeError(f"perbatch trajectory {i} differs from its "
+                               f"single plan")
+    log(f"perbatch: both applies equal the loop of {PB_BATCH} single "
+        f"plans (budget {budget} B) bit for bit")
+
+    idx_pts = torch.from_numpy(np.sort(sub.choice(
+        PB_POINTS, SUBSET, replace=False))).to(dev)
+    idx_modes = torch.from_numpy(np.sort(sub.choice(
+        int(np.prod(PB_GRID)), SUBSET, replace=False))).to(dev)
+    failed = []
+    for i in (0, PB_BATCH - 1):
+        x64 = pts[i].double()
+        f64 = torch.from_numpy(z[i]).to(dev).to(torch.complex128)
+        c64 = torch.from_numpy(c[i]).to(dev).to(torch.complex128)
+        ref2 = torch.view_as_complex(planar.nufft(
+            x[i][None].double(), x64, tol=TOL)[0].contiguous())
+        ref1 = torch.view_as_complex(planar.nufft(
+            cp[i][None].double(), x64, grid_shape=PB_GRID,
+            transform_type="type_1", fft_direction="backward",
+            tol=TOL)[0].contiguous())
+        got2 = torch.view_as_complex(y[i].contiguous())
+        got1 = torch.view_as_complex(xt[i].contiguous())
+        exact2 = exact_type2_subset(x64, f64, idx_pts, -1.0, dev,
+                                    grid=PB_GRID)
+        exact1 = exact_type1_subset(x64, c64, idx_modes, dev, sign=1.0,
+                                    grid=PB_GRID)
+        for label, got, ref, exact, idx in (
+                ("type-2", got2, ref2, exact2, idx_pts),
+                ("type-1 (adjoint)", got1, ref1, exact1, idx_modes)):
+            err_total = rel(got.reshape(-1)[idx], exact)
+            err_impl = rel(got, ref)
+            log(f"perbatch trajectory {i} {label}: err_total ({SUBSET}-"
+                f"element subset, exact NUDFT) {err_total:.3e} (gate < "
+                f"{10 * TOL:g}), err_impl (float64 route) {err_impl:.3e} "
+                f"(gate < {TOL:g})")
+            if not (err_total < 10 * TOL and err_impl < TOL):
+                failed.append((i, label))
+    xg = x.clone().requires_grad_()
+    op(xg).backward(cp)
+    if not torch.equal(xg.grad, xt):
+        failed.append("backward is not the adjoint batch")
+    log("perbatch: x.grad of a backward equals the adjoint batch's "
+        f"output bit for bit: {torch.equal(xg.grad, xt)}")
+    del xg
+    y2 = op(torch.stack([x, 0.5 * x], dim=1))
+    for j, want_j in ((0, y), (1, op(0.5 * x))):
+        same = torch.equal(y2[:, j], want_j)
+        err = 0.0 if same else rel(y2[:, j], want_j)
+        log(f"perbatch inner batch axis, element {j}: equals a single "
+            f"apply bit for bit: {same} ({err:.3e} of the peak, gate < "
+            f"1e-6)")
+        if not err < 1e-6:
+            failed.append(f"inner axis element {j}")
+    del y2
+    if failed:
+        raise RuntimeError(f"perbatch gates failed: {failed}")
+
+    # The rank-2 binned kernels at shard 0's geometry (coords, the
+    # unbanded kernels), held to their plain versions and timed.
+    sh = op._shards[0]
+    geom, plan, tb = sh.geom, sh.plan, sh.binned.tile_bounds
+    used = int(tb[-1]) * geom.chunk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    values_pl = binning.build_values_payload(cp[0].t().contiguous(),
+                                             sh.binned)
+    tiles = torch.randn(geom.tiles + (2,) + geom.ext, generator=gen,
+                        device=dev)
+    wrap = wrappers()
+    results = {}
+    for name, kernel, plain, kind in (
+            ("spread2d_binned_perbatch",
+             functools.partial(wrap["spread2d_binned_perbatch"], values_pl,
+                               tb, geom, plan, sh.coords),
+             functools.partial(spread.spread_tiles_plain, values_pl, tb,
+                               geom, plan, coords=sh.coords), "spread"),
+            ("interp2d_binned_perbatch",
+             functools.partial(wrap["interp2d_binned_perbatch"], tiles, tb,
+                               geom, plan, sh.coords),
+             functools.partial(interp.interp_tiles_plain, tiles, tb, geom,
+                               plan, coords=sh.coords), "interp")):
+        hold(name, kernel, plain, results)
+        time_pair(name, kernel, plain, results,
+                  tile_work(kind, False, geom, plan, 2, PB_POINTS, used))
+    cases = {"perbatch_type2": lambda: op(x),
+             "perbatch_type1_adjoint": lambda: adj(cp),
+             "perbatch_build": build}
+    total = PB_BATCH * PB_POINTS
+    for name, fn in cases.items():
+        ms = cuda_ms(fn, reps=3 if name.endswith("build") else REPS,
+                     warmup=1 if name.endswith("build") else WARMUP)
+        rate = ("" if name.endswith("build")
+                else f", {total / ms * 1e3:.4e} points/s")
+        log(f"time 2d_t2_256_200k_b16_perbatch {name}: {ms:.4f} ms{rate}")
+    log(f"time 2d_t2_256_200k_b16_perbatch first build: {build_ms:.4f} ms")
+    return launches, results, cases
+
+
+# bench_suite.py's type-3 cells (type3_case, bench_suite.py:342-404,
+# registered at :747-757): (name, rank, M = K, t_range, planned).
+T3_CELLS = (("2d_t3_200k_200k", 2, 200_000, 64.0, True),
+            ("3d_t3_500k_500k", 3, 500_000, 16.0, True),
+            ("3d_t3_500k_500k_unplanned", 3, 500_000, 16.0, False))
+# The stage levels the KERNELS rows of the type-3 phases assume (the
+# port's Type3Plan rule at these inputs): (outer spread, inner type-2,
+# whether the inner one is banded).
+T3_LEVELS = {2: ("binned", "mats", False), 3: ("mats", "binned", True)}
+
+
+def type3_inputs(rank, m, t_range):
+    """bench_suite.py's type-3 inputs (default_rng(7)): points in [-pi,
+    pi), targets in [-t_range, t_range), both [M, rank] float32, and
+    complex normal strengths [M] (complex64)."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-np.pi, np.pi, (m, rank)).astype(np.float32)
+    t = rng.uniform(-t_range, t_range, (m, rank)).astype(np.float32)
+    z = (rng.standard_normal(m) + 1j * rng.standard_normal(m)).astype(
+        np.complex64)
+    return x, t, z
+
+
+def plain_type3(op, source):
+    """A planar Type3Plan's pipeline on the port's plain versions, called
+    directly (no dispatch): the prephase, the plain spread onto the fine
+    grid from the plan's windows or coords, the plain fold, the plain
+    type-2 pipeline of the inner plan (``plain_pipeline``), the
+    postphase. source [B, M, 2] on the card, float32."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.kernels import binning, mode3d, spread
+    batch = source.shape[0]
+    src = planar.pmul(source, op._prephase)
+    values = binning.build_values_payload(
+        src.movedim(-1, 1).reshape(2 * batch, -1), op.binned)
+    tiles = spread.spread_tiles_plain(values, op.binned.tile_bounds, op.geom,
+                                      op._spread_plan, kw=op.weights,
+                                      coords=op.coords)
+    fine = torch.view_as_real(mode3d.fold_plain(tiles, op.geom, batch))
+    inner = op._inner_t2
+    vals = plain_pipeline(fine.contiguous(), inner.points, inner.plan)
+    return planar.pmul(vals, op._postphase)
+
+
+def exact_type3_subset(x, t, c, idx, sign=-1.0):
+    """The type-3 NUDFT sum_j c_j exp(sign i t_k . x_j) in complex128 at
+    the targets ``idx``, summed over all points in chunks."""
+    import torch
+    tt = t[idx].double()
+    x64 = x.double()
+    out = torch.zeros(len(idx), dtype=torch.complex128, device=x.device)
+    for lo in range(0, x64.shape[0], 8192):
+        phase = sign * (tt @ x64[lo:lo + 8192].T)          # [S, chunk]
+        out += torch.polar(torch.ones_like(phase), phase) @ c[lo:lo + 8192]
+    return out
+
+
+def describe_type3(name, op):
+    """Logs a planar Type3Plan's statics, both stages' levels and
+    geometries, the inner band and chunk use."""
+    inner = op._inner_t2
+    g, gi = op.geom, inner.geom
+    log(f"{name}: fine_shape {op.fine_shape}, width "
+        f"{op._spread_plan.width}; outer spread level {op._spread_level}, "
+        f"tiles {g.tiles} ext {g.ext} chunk {g.chunk} chunks "
+        f"{g.num_chunks} (used {int(op.binned.tile_bounds[-1])}); inner "
+        f"type-2 level {inner.level}, fine {inner.plan.fine_shape} tiles "
+        f"{gi.tiles} ext {gi.ext} chunk {gi.chunk} chunks {gi.num_chunks} "
+        f"(used {int(inner.binned.tile_bounds[-1])}), band "
+        f"{inner.band_info.band if inner.band_info else None}")
+
+
+def type3_phase(dev):
+    """bench_suite.py's three type-3 cells through planar.Type3Plan (the
+    unplanned cell through planar.nufft_type3, which builds its plan in
+    every call): each apply counted as a main path (the outer spread
+    once, at rank 3 fold3d once, the inner interp once and at rank 3
+    modes_to_fine 3 and extend_tiles3d once), with no plain version on
+    the card path. Gates: (a) against the float32 plain pipeline of the
+    same plan on the card (``plain_type3``) < 10 * tol of the peak,
+    bench_suite.py's gate; (b) err_total against the exact type-3 NUDFT
+    (complex128, 4096 seeded targets) < max(10 * tol, 4 * floor_f32);
+    (c) err_impl against complex128 tnt.Type3Plan (the float64 route, no
+    launch) < max(tol, 4 * floor_f32), floor_f32 the plain pipeline's
+    error against the same reference; (d) complex64 tnt.Type3Plan within
+    the same gates; (e) <A c, y> = <c, A^H y> within 1e-5 relative; (f) a
+    backward through the plan equals op.adjoint() on the cotangent, bit
+    for bit. Each stage's kernel held to its plain version at the cell's
+    geometry and timed; each cell's apply timed (CUDA events, median of
+    25, unplanned 5), points/s as (M + K) / time."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.kernels import (fft3d, interp, mode3d,
+                                                    spread)
+    launches, results, cases, refs = {}, {}, {}, {}
+    plans = {}
+    for name, rank, m, t_range, planned in T3_CELLS:
+        if rank not in refs:
+            x, t, z = type3_inputs(rank, m, t_range)
+            xt, tt = torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+            c64 = torch.from_numpy(z).to(dev)
+            src = torch.view_as_real(c64)[None].contiguous()
+            refs[rank] = dict(xt=xt, tt=tt, c64=c64, src=src)
+        r = refs[rank]
+        xt, tt, c64, src = r["xt"], r["tt"], r["c64"], r["src"]
+        if planned:
+            def build(xt=xt, tt=tt):
+                return planar.Type3Plan(xt, tt, tol=TOL)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            op = plans[rank] = build()
+            torch.cuda.synchronize()
+            log(f"{name}: first plan build {(time.perf_counter() - start) * 1e3:.4f} ms")
+            describe_type3(name, op)
+            inner = op._inner_t2
+            got = (op._spread_level, inner.level, inner.band_info is not None)
+            if got != T3_LEVELS[rank]:
+                raise RuntimeError(f"{name}: levels {got}, the KERNELS "
+                                   f"rows assume {T3_LEVELS[rank]}")
+
+            def apply(op=op, src=src):
+                return op(src)
+            phase = f"type3_{rank}d"
+        else:
+            op = plans[rank]
+
+            def apply(xt=xt, tt=tt, src=src):
+                return planar.nufft_type3(src, xt, tt, tol=TOL)
+            phase = "type3_3d_unplanned"
+        reset_launches()
+        with no_plain_calls(name):
+            out = apply()
+            torch.cuda.synchronize()
+        launches[phase] = read_launches(phase)
+        counts = {k: n for k, n in step_launches().items() if n}
+        inner = op._inner_t2
+        want = {(spread.spread_planned_cuda if op._spread_level == "mats"
+                 else spread.spread_unplanned_cuda).__name__: 1,
+                (interp.interp_planned_cuda if inner.level == "mats"
+                 else interp.interp_banded_cuda if inner.band_info
+                 else interp.interp_unplanned_cuda).__name__: 1}
+        if rank == 3:
+            want.update({mode3d.fold3d_cuda.__name__: 1,
+                         mode3d.extend_tiles3d_cuda.__name__: 1,
+                         fft3d.modes_to_fine_cuda.__name__: 3})
+        log(f"{name} launches (one apply): {counts}")
+        if counts != want:
+            raise RuntimeError(f"{name}: launches {counts}, want {want}")
+
+        # Gates (a)-(d).
+        if "ref64" not in r:
+            r["plain"] = plain_type3(op, src)
+            sub = np.random.default_rng(SEED + 15 + rank)
+            r["idx"] = torch.from_numpy(np.sort(sub.choice(
+                m, SUBSET, replace=False))).to(dev)
+            c128 = c64.to(torch.complex128)
+            r["exact"] = exact_type3_subset(xt, tt, c128, r["idx"])
+            reset_launches()
+            r["ref64"] = tnt.Type3Plan(xt.double(), tt.double(),
+                                       tol=TOL)(c128[None])[0]
+            torch.cuda.synchronize()
+            no_launches(f"{name} complex128 reference")
+            r["complex64"] = tnt.Type3Plan(xt, tt, tol=TOL)(c64[None])[0]
+        plain, idx, exact, ref64 = r["plain"], r["idx"], r["exact"], r["ref64"]
+        plain_c = torch.view_as_complex(plain[0].contiguous())
+        floor_total, floor_impl = rel(plain_c[idx], exact), rel(plain_c, ref64)
+        gate_total = max(10 * TOL, 4 * floor_total)
+        gate_impl = max(TOL, 4 * floor_impl)
+        err_plain = rel(out, plain)
+        log(f"{name} (a): vs the float32 plain pipeline {err_plain:.3e} of "
+            f"the peak (gate < {10 * TOL:g}); floor_f32: {floor_total:.3e} "
+            f"vs exact, {floor_impl:.3e} vs complex128")
+        ok = err_plain < 10 * TOL
+        for label, got in (("planar", torch.view_as_complex(
+                out[0].contiguous())), ("complex64 tnt.Type3Plan",
+                                        r["complex64"])):
+            err_total, err_impl = rel(got[idx], exact), rel(got, ref64)
+            log(f"{name} {label}: (b) err_total ({SUBSET} targets, exact "
+                f"NUDFT) {err_total:.3e} (gate < {gate_total:.3e}; below "
+                f"10 * tol: {err_total < 10 * TOL}); (c) err_impl (vs "
+                f"complex128 Type3Plan) {err_impl:.3e} (gate < "
+                f"{gate_impl:.3e}; below tol: {err_impl < TOL})")
+            ok = ok and err_total < gate_total and err_impl < gate_impl
+        if not planned:
+            same = torch.equal(out, plans[rank](src))
+            log(f"{name}: equals the planned cell's output bit for bit: "
+                f"{same}")
+        else:
+            # (e) and (f).
+            gen = torch.Generator(device=dev).manual_seed(SEED + 17 + rank)
+            yv = torch.randn((1, m, 2), generator=gen, device=dev)
+            adj = op.adjoint()
+
+            def inner_product(a, b):
+                a, b = a.double(), b.double()
+                return complex(float((a[..., 0] * b[..., 0]
+                                      + a[..., 1] * b[..., 1]).sum()),
+                               float((a[..., 1] * b[..., 0]
+                                      - a[..., 0] * b[..., 1]).sum()))
+            back = adj(yv)
+            lhs, rhs = inner_product(out, yv), inner_product(src, back)
+            err_adj = abs(lhs - rhs) / abs(lhs)
+            s = src.clone().requires_grad_()
+            op(s).backward(yv)
+            same = torch.equal(s.grad, back)
+            log(f"{name}: (e) <A c, y> = {lhs:.6e}, <c, A^H y> = {rhs:.6e}, "
+                f"relative difference {err_adj:.3e} (gate < 1e-5); (f) the "
+                f"backward equals op.adjoint() bit for bit: {same}")
+            ok = ok and err_adj < 1e-5 and same
+            del s, back, yv
+        if not ok:
+            raise RuntimeError(f"{name} gates failed")
+
+        if planned:
+            results.update(type3_kernels(name, rank, op, src, dev))
+            cases[f"{name}_build"] = build
+        cases[name] = apply
+        reps = REPS if planned else 5
+        ms = cuda_ms(apply, reps=reps, warmup=WARMUP if planned else 1)
+        log(f"time {name}: {ms:.4f} ms per transform, "
+            f"{2 * m / ms * 1e3:.4e} points/s ((M + K) / time; median of "
+            f"{reps})")
+        if planned:
+            log(f"time {name} plan build: "
+                f"{cuda_ms(build, reps=3, warmup=1):.4f} ms (median of 3)")
+        torch.cuda.empty_cache()
+    return launches, results, cases
+
+
+def type3_kernels(name, rank, op, src, dev):
+    """Each stage kernel of a planar Type3Plan held to its plain version
+    at the plan's geometries and timed: the outer spread (from the
+    prephased strengths) and the inner interp; at rank 3 also fold3d at
+    the outer geometry and extend_tiles3d and modes_to_fine at the inner
+    one (``halo_phase``, ``stage_phase``)."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.kernels import binning, interp, spread
+    inner = op._inner_t2
+    m, k = op.num_points, op.num_targets
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18 + rank)
+    cm = planar.pmul(src, op._prephase)[0].t().contiguous()
+    values_pl = binning.build_values_payload(cm, op.binned)
+    g, tb = op.geom, op.binned.tile_bounds
+    gi, tbi = inner.geom, inner.binned.tile_bounds
+    tiles_i = torch.randn(gi.tiles + (2,) + gi.ext, generator=gen,
+                          device=dev)
+    wrap = wrappers()
+    sname, iname = f"spread_t3_{rank}d", f"interp_t3_{rank}d"
+    if op.weights is not None:
+        spread_args, spread_kw = (op.weights,), dict(kw=op.weights)
+    else:
+        spread_args, spread_kw = (op.coords,), dict(coords=op.coords)
+    if inner.weights is not None:
+        interp_args, interp_kw = (inner.weights,), dict(kw=inner.weights)
+    elif inner.band_info is not None:
+        interp_args = (inner.coords, inner.band_info)
+        interp_kw = dict(coords=inner.coords, band=inner.band_info)
+    else:
+        interp_args, interp_kw = (inner.coords,), dict(coords=inner.coords)
+    results = {}
+    for kname, kernel, plain, work in (
+            (sname, functools.partial(wrap[sname], values_pl, tb, g,
+                                      op._spread_plan, *spread_args),
+             functools.partial(spread.spread_tiles_plain, values_pl, tb, g,
+                               op._spread_plan, **spread_kw),
+             tile_work("spread", op.weights is not None, g, op._spread_plan,
+                       2, m, int(tb[-1]) * g.chunk)),
+            (iname, functools.partial(wrap[iname], tiles_i, tbi, gi,
+                                      inner.plan, *interp_args),
+             functools.partial(interp.interp_tiles_plain, tiles_i, tbi, gi,
+                               inner.plan, **interp_kw),
+             tile_work("interp", inner.weights is not None, gi, inner.plan,
+                       2, k, int(tbi[-1]) * gi.chunk))):
+        hold(kname, kernel, plain, results)
+        time_pair(kname, kernel, plain, results, work,
+                  label=f"{kname} {name}")
+    if rank == 3:
+        def cplx(shape):
+            return torch.complex(*(torch.randn(shape, generator=gen,
+                                               device=dev)
+                                   for _ in range(2)))
+        outer, inner_halo, stages = {}, {}, {}
+        tiles_o = wrap[sname](values_pl, tb, g, op._spread_plan,
+                              *spread_args)
+        halo_phase(f"{name} outer", g, 1, tiles_o,
+                   cplx((1,) + g.fine_shape), outer)
+        halo_phase(f"{name} inner", gi, 1, tiles_i,
+                   cplx((1,) + gi.fine_shape), inner_halo)
+        stage_phase(f"{name} inner", inner.plan, 1, stages, gen,
+                    kinds=("modes_to_fine",))
+        results["fold3d_t3"] = outer["fold3d"]
+        results["extend_tiles3d_t3"] = inner_halo["extend_tiles3d"]
+        results["modes_to_fine_t3"] = stages["modes_to_fine"]
+    return results
+
+
 def profile_phase(label, cases, calls=20):
     """Event median, device busy time and idle share per call of each
     case (label -> zero-argument callable), with its largest device
@@ -3201,6 +3735,19 @@ def main():
     phases["cg_sense"], cases = cg_sense_phase(dev)
     if "--profile" in sys.argv:
         profile_phase("cg_sense", cases)
+    del cases
+    torch.cuda.empty_cache()
+    phases["perbatch"], pb_results, cases = perbatch_phase(dev)
+    results.update(pb_results)
+    if "--profile" in sys.argv:
+        profile_phase("perbatch", cases)
+    del cases
+    torch.cuda.empty_cache()
+    t3_launches, t3_results, cases = type3_phase(dev)
+    phases.update(t3_launches)
+    results.update(t3_results)
+    if "--profile" in sys.argv:
+        profile_phase("type3", cases)
     del cases
     torch.cuda.empty_cache()
     points3, z3, modes3 = inputs3d()

@@ -1,7 +1,9 @@
 """PyTorch port of tensorflow_nufft_tpu: 1D, 2D and 3D type-1/type-2
 NUFFTs on complex tensors (``nufft``, ``interp``, ``spread``, ``nudft``)
-and on planar ones (``planar``), the planned ``PlannedNufft``, the
-Toeplitz-embedded normal operator and the MRI models (``models.mri``).
+and on planar ones (``planar``), type-3 (``nufft_type3``, ``Type3Plan``,
+``nudft_type3``), the planned ``PlannedNufft`` and its per-trajectory
+stack ``planar.BatchedPlannedNufft``, the Toeplitz-embedded normal
+operator and the MRI models (``models.mri``).
 
 The spread and interp hot loops, and at 3D the mode stages and their
 FFT, run as hand-written CUDA kernels on float32 CUDA tensors
@@ -30,6 +32,8 @@ from tensorflow_nufft_tpu_torch.__about__ import __version__
 from tensorflow_nufft_tpu_torch import models, planar
 from tensorflow_nufft_tpu_torch.ops.nufft_ops import (
     interp, nudft, nufft, spread)
+from tensorflow_nufft_tpu_torch.ops.type3 import (
+    Type3Plan, nudft_type3, nufft_type3)
 from tensorflow_nufft_tpu_torch.options.options import (
     DebuggingOptions, FftwOptions, FftwPlanningRigor, Options, PointsRange)
 from tensorflow_nufft_tpu_torch.plan.plan import (
@@ -40,6 +44,9 @@ __all__ = [
     "planar",
     "models",
     "nufft",
+    "nufft_type3",
+    "nudft_type3",
+    "Type3Plan",
     "interp",
     "spread",
     "nudft",

@@ -159,11 +159,12 @@ def interp_tiled(tiles: torch.Tensor, binned: BinnedPoints,
 
 
 def spread(values_cm: torch.Tensor, binned: BinnedPoints,
-           geom: TileGeometry, plan) -> torch.Tensor:
+           geom: TileGeometry, plan, kw: Optional[KernelWeights] = None,
+           coords: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Channel-major values [2B, M] -> planar fine grid [B, *fine, 2]:
-    the unplanned tiled spread, then the periodic overlap-add of the
-    halos."""
-    tiles = spread_tiled(values_cm, binned, geom, plan)
+    the tiled spread (unplanned, or from a plan's ``kw`` or ``coords``
+    as ``spread_tiled``), then the periodic overlap-add of the halos."""
+    tiles = spread_tiled(values_cm, binned, geom, plan, kw=kw, coords=coords)
     batch = values_cm.shape[0] // 2
     if mode3d.on_kernels(tiles, geom.rank):
         fine = mode3d.fold3d_cuda(tiles, geom, batch)

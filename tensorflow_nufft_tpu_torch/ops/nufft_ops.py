@@ -39,12 +39,12 @@ VALID_FFT_DIRECTIONS = ("forward", "backward")
 
 def _validate_enum(value, valid, name):
     if name == "transform_type" and value == "type_3":
-        # The JAX package runs type-3 through a separate entry point (two
-        # point sets, no grid shape), which is not ported yet.
+        # Type-3 takes two point sets rather than a grid shape, so it has
+        # its own entry point (ops.type3).
         raise NotImplementedError(
-            "type-3 transforms use a different signature "
-            "(nufft_type3(source, points, target_points, ...)), which "
-            "this port does not have yet (ROADMAP.md, Queue 1 item 5)")
+            "type-3 transforms use a different signature; call "
+            "tensorflow_nufft_tpu_torch.nufft_type3(source, points, "
+            "target_points, ...) instead")
     if value not in valid:
         raise ValueError(
             f"Invalid {name}: {value!r}. Must be one of {sorted(valid)}.")

@@ -2,7 +2,9 @@
 
 Counterpart of ``tensorflow_nufft_tpu.planar`` for ranks 1, 2 and 3:
 ``nufft``, the standalone ``interp`` and ``spread``, the dense oracle
-``nudft`` and the planned ``PlannedNufft``. A complex tensor
+``nudft``, the planned ``PlannedNufft``, its per-trajectory stack
+``BatchedPlannedNufft``, and the type-3 transforms (``Type3Plan``,
+``nufft_type3`` and the oracle ``nudft_type3``). A complex tensor
 ``z`` is carried as ``to_planar(z)`` = real [..., 2].
 
 The entry points run on the CUDA card unless the caller asks for the
@@ -16,9 +18,10 @@ counterpart of the JAX package's XLA path (``kernels.dispatch.route``).
 ``ToeplitzNormal`` is the Toeplitz-embedded normal operator.
 
 Gradients: ``nufft``, ``interp`` and ``spread`` are differentiable in
-``source`` and ``points``, ``PlannedNufft`` in its source (through
-``adjoint()``), its slot-order values and ``normal``'s source; a plan's
-points and slot weights are plan data. These are real functions,
+``source`` and ``points``; ``PlannedNufft``, ``BatchedPlannedNufft`` and
+``Type3Plan`` in their source (through ``adjoint()``), ``PlannedNufft``
+also in its slot-order values and ``normal``'s source; a plan's points
+and slot weights are plan data. These are real functions,
 so a gradient is the real transpose, the planar form of the complex
 adjoint: gradients of a real loss equal the JAX package's ``jax.vjp``.
 """
@@ -36,13 +39,17 @@ from tensorflow_nufft_tpu_torch.fft.planar_fft import (
 from tensorflow_nufft_tpu_torch.kernels import binning, dispatch
 from tensorflow_nufft_tpu_torch.ops.nufft_ops import (
     VALID_FFT_DIRECTIONS, VALID_TRANSFORM_TYPES, _apply_batched,
-    _canonical_grid_shape, _validate_enum, check_points_range)
+    _canonical_grid_shape, _full_precision_matmul, _validate_enum,
+    check_points_range)
 from tensorflow_nufft_tpu_torch.ops.planar_core import (
     bin_for_plan, nufft_core_planar, spread_only_core_planar)
+from tensorflow_nufft_tpu_torch.ops.type3 import (
+    FineSpread, compute_type3_statics, validate_type3_point_sets)
 from tensorflow_nufft_tpu_torch.options.options import Options
 from tensorflow_nufft_tpu_torch.plan.plan import (
     PlanSpec, auto_max_batch_size, log_plan_summary, make_plan,
     warn_if_tol_clamped)
+from tensorflow_nufft_tpu_torch.utils.batching import chunked_map
 from tensorflow_nufft_tpu_torch.utils.dtypes import (
     FLOAT_DTYPES, as_tensor, dtype_name, entry_tensors)
 
@@ -283,6 +290,10 @@ class PlannedNufft:
     Args:
         points: [M, rank] float32/float64 tensor or array.
         grid_shape: the mode grid (type-1 output, type-2 input).
+        payload_budget_bytes: the dense-matrix budget of the "mats"
+            level (``binning.MATS_BYTES_BUDGET`` by default); callers
+            building many plans (``BatchedPlannedNufft``, the inner
+            type-2 of ``Type3Plan``) pass a share of it.
         device: where the plan lives. By default a tensor's own device,
             and the CUDA card for numpy/list points (raises without
             one); pass ``device="cpu"`` for the CPU.
@@ -290,7 +301,8 @@ class PlannedNufft:
 
     def __init__(self, points, grid_shape, transform_type="type_2",
                  fft_direction="forward", tol: float = 1e-6,
-                 options: Optional[Options] = None, device=None):
+                 options: Optional[Options] = None,
+                 payload_budget_bytes: Optional[int] = None, device=None):
         transform_type = _validate_enum(
             transform_type, VALID_TRANSFORM_TYPES, "transform_type")
         fft_direction = _validate_enum(
@@ -343,9 +355,11 @@ class PlannedNufft:
             return
         plan, m = self.plan, int(points.shape[0])
         geom = binning.choose_geometry(plan.fine_shape, plan.width, m)
+        budget = (binning.MATS_BYTES_BUDGET if payload_budget_bytes is None
+                  else payload_budget_bytes)
         self.level = ("mats" if binning.mats_supported(geom)
-                      and binning.mats_payload_bytes(geom)
-                      <= binning.MATS_BYTES_BUDGET else "binned")
+                      and binning.mats_payload_bytes(geom) <= budget
+                      else "binned")
         zorder = self.level == "binned" and rank == 3
         if zorder:
             unbanded = geom
@@ -388,6 +402,33 @@ class PlannedNufft:
     @property
     def device(self) -> torch.device:
         return self.points.device
+
+    @classmethod
+    def batch_build(cls, points_stack, grid_shape,
+                    transform_type="type_2", fft_direction="forward",
+                    tol: float = 1e-6, options: Optional[Options] = None,
+                    payload_budget_bytes: Optional[int] = None,
+                    device=None) -> list:
+        """One plan per leading slice of ``points_stack`` ([S, M,
+        rank]), each with ``payload_budget_bytes``. Equal shard sizes give
+        every shard the same geometry and level; a shard whose band
+        degenerates re-plans alone, as its own constructor decides. The
+        JAX package traces the shards' preprocessing as one vmapped jit;
+        here each shard bins in its own eager pass."""
+        points_stack, = entry_tensors(points_stack, device=device)
+        return [cls(points_stack[i], grid_shape,
+                    transform_type=transform_type,
+                    fft_direction=fft_direction, tol=tol, options=options,
+                    payload_budget_bytes=payload_budget_bytes)
+                for i in range(points_stack.shape[0])]
+
+    @classmethod
+    def from_batch(cls, points_batch, grid_shape, **kwargs
+                   ) -> "BatchedPlannedNufft":
+        """Batched planned transforms over stacked per-batch
+        trajectories ([S, M, rank] -> one planned transform per slice,
+        applied in one call); see ``BatchedPlannedNufft``."""
+        return BatchedPlannedNufft(points_batch, grid_shape, **kwargs)
 
     def adjoint(self) -> "PlannedNufft":
         """The adjoint planned transform (swapped type and direction),
@@ -698,6 +739,151 @@ class _FromSlots(torch.autograd.Function):
         return _ToSlots.apply(cotangent, ctx.op), None
 
 
+class BatchedPlannedNufft:
+    """Planned planar NUFFT over a stack of trajectories: points
+    [S, M, rank], one planned transform per leading slice, applied in one
+    call (per-batch trajectories, as in dynamic MRI, where every frame has
+    its own trajectory).
+
+    The shards are ``PlannedNufft.batch_build``'s plans; each takes the
+    plan level of a ``PlannedNufft`` whose dense-matrix budget is
+    ``binning.MATS_BYTES_BUDGET // S`` (the JAX package splits its payload
+    budget S ways), so wide stacks take the "binned" level.
+
+    Apply shapes (planar, one transform per trajectory):
+      type_2: [S, *grid, 2] -> [S, M, 2]
+      type_1: [S, M, 2]     -> [S, *grid, 2]
+    An optional inner batch axis B (transforms sharing trajectory i) is
+    accepted as [S, B, ...] -> [S, B, ...].
+
+    Differentiable in ``source`` (the gradient applies the adjoint batch,
+    which shares every shard's artifacts); the points are plan data and
+    may not require grad. Where a shard is at level "none" (float64,
+    ``backend='xla'``), applies run ``planar.nufft`` per trajectory.
+
+    Args:
+        points_batch: [S, M, rank] float32/float64 tensor or array.
+        grid_shape: the mode grid.
+        device: where the plans live (as ``PlannedNufft``'s).
+    """
+
+    def __init__(self, points_batch, grid_shape, transform_type="type_2",
+                 fft_direction="forward", tol: float = 1e-6,
+                 options: Optional[Options] = None, device=None):
+        points_batch, = entry_tensors(points_batch, device=device)
+        if points_batch.ndim != 3:
+            raise ValueError(
+                f"BatchedPlannedNufft takes stacked [S, M, rank] "
+                f"points, got shape {tuple(points_batch.shape)}")
+        s = int(points_batch.shape[0])
+        self.points_batch = points_batch
+        self.num_batches = s
+        self._shards = PlannedNufft.batch_build(
+            points_batch, grid_shape, transform_type=transform_type,
+            fft_direction=fft_direction, tol=tol, options=options,
+            payload_budget_bytes=max(binning.MATS_BYTES_BUDGET // s, 1))
+        p0 = self._shards[0]
+        self.grid_shape = p0.grid_shape
+        self.transform_type = p0.transform_type
+        self.fft_direction = p0.fft_direction
+        self.tol = p0.tol
+        self.options = p0.options
+        self._planned = all(sh.level != "none" for sh in self._shards)
+        self._adjoint = None
+
+    @property
+    def num_points(self) -> int:
+        return int(self.points_batch.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.points_batch.device
+
+    def adjoint(self) -> "BatchedPlannedNufft":
+        """The adjoint batch (swapped type and direction), sharing all
+        per-trajectory points-side artifacts."""
+        if self._adjoint is None:
+            adj = object.__new__(BatchedPlannedNufft)
+            adj.__dict__.update(self.__dict__)
+            adj.transform_type = ("type_2"
+                                  if self.transform_type == "type_1"
+                                  else "type_1")
+            adj.fft_direction = ("backward"
+                                 if self.fft_direction == "forward"
+                                 else "forward")
+            adj._shards = [sh.adjoint() for sh in self._shards]
+            adj._adjoint = self
+            self._adjoint = adj
+        return self._adjoint
+
+    def _elem_rank(self) -> int:
+        return (2 if self.transform_type == "type_1"
+                else len(self.grid_shape) + 1)
+
+    def _apply(self, source: torch.Tensor) -> torch.Tensor:
+        inner = source.ndim == self._elem_rank() + 2
+        outs = []
+        for i, sh in enumerate(self._shards):
+            out = sh._apply(source[i] if inner else source[i][None])
+            outs.append(out if inner else out[0])
+        return torch.stack(outs)
+
+    def __call__(self, source) -> torch.Tensor:
+        """Applies the per-trajectory transforms to planar ``source``
+        ([S, *elem] or [S, B, *elem]; see the class docstring)."""
+        source = as_tensor(source, device=self.device)
+        m = self.num_points
+        er = self._elem_rank()
+        if self.transform_type == "type_1":
+            elem_ok = (tuple(source.shape[-2:]) == (m, 2)
+                       if source.ndim >= 2 else False)
+            expect = f"[S, (B,) {m}, 2]"
+        else:
+            gs = tuple(self.grid_shape)
+            elem_ok = (source.ndim >= er + 1
+                       and tuple(source.shape[-er:-1]) == gs
+                       and source.shape[-1] == 2)
+            expect = f"[S, (B,) {', '.join(str(g) for g in gs)}, 2]"
+        if (not elem_ok or source.ndim not in (er + 1, er + 2)
+                or source.shape[0] != self.num_batches):
+            raise ValueError(
+                f"batched planned {self.transform_type} expects a "
+                f"source of shape {expect} with S={self.num_batches}; "
+                f"got shape {tuple(source.shape)}")
+        if source.dtype != self.points_batch.dtype:
+            raise TypeError(
+                f"source must have the plan's dtype "
+                f"{self.points_batch.dtype}, got {source.dtype}")
+        if not self._planned:
+            # The unplanned route: the functional op per (source,
+            # trajectory) pair, as the JAX package's vmap.
+            inner = source.ndim == er + 2
+            src = source if inner else source[:, None]
+            grid = (self.grid_shape if self.transform_type == "type_1"
+                    else None)
+            out = torch.stack([
+                nufft(src[i], self.points_batch[i], grid,
+                      self.transform_type, self.fft_direction, self.tol,
+                      self.options) for i in range(self.num_batches)])
+            return out if inner else out[:, 0]
+        return _BatchedPlannedCall.apply(source, self)
+
+
+class _BatchedPlannedCall(torch.autograd.Function):
+    """A batched planned apply whose backward is the adjoint batch's
+    apply (the real transpose per trajectory; JAX
+    ``_batched_planned_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, source, op):
+        ctx.op = op
+        return op._apply(source.contiguous())
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        return _BatchedPlannedCall.apply(cotangent, ctx.op.adjoint()), None
+
+
 def pmul(values, phase) -> torch.Tensor:
     """Planar complex multiply: values [..., 2] * phase [..., 2]
     (broadcasting; ``models.mri.pmul`` is this function)."""
@@ -811,3 +997,242 @@ class _ToeplitzCall(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cotangent):
         return _ToeplitzCall.apply(cotangent, ctx.op), None
+
+
+class Type3Plan:
+    """Planned planar type-3 NUFFT: nonuniform points -> nonuniform
+    frequencies, f_k = sum_j c_j exp(s i t_k . x_j).
+
+    The planar twin of the complex ``Type3Plan`` (``ops.type3`` has the
+    derivation), built from planned stages: a tiled spread onto the
+    type-3 fine grid with its binning and payload hoisted to plan time,
+    the halo fold, and a planned type-2 (``PlannedNufft``) at the rescaled
+    target frequencies.
+
+    The outer spread is planned by the JAX package's rule where the
+    kernels' route serves it (float32 off ``backend='xla'``:
+    ``_spread_level`` "mats" or "binned", else "none"). The dense-matrix
+    budget is shared with the inner type-2: the inner plan's own need is
+    estimated first, and the outer spread takes the "mats" level only
+    where both fit (or where the inner one would stream coords anyway),
+    with a 16 MiB margin for a stage that streams coords; the rest goes
+    to the inner plan as its ``payload_budget_bytes``.
+
+    Apply: ``op(source)`` with planar [B, M, 2] -> [B, K, 2], float32.
+    Differentiable in the strengths (the gradient applies ``adjoint()``,
+    which swaps the point sets and flips the direction); the point sets
+    are plan data.
+
+    Args:
+        points: [M, rank] float32 coordinates, any range; no gradient.
+        target_points: [K, rank] float32 frequencies.
+        device: where the plan lives (as ``PlannedNufft``'s).
+    """
+
+    def __init__(self, points, target_points,
+                 fft_direction: str = "forward", tol: float = 1e-6,
+                 options: Optional[Options] = None, device=None):
+        fft_direction = _validate_enum(
+            fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
+        options = options or Options()
+        if options.upsampling_factor not in (None, 0.0, 2.0):
+            raise ValueError(
+                "type-3 transforms support only upsampling_factor=2.0 "
+                f"(got {options.upsampling_factor}).")
+        points, target_points = entry_tensors(points, target_points,
+                                              device=device)
+        x, t = validate_type3_point_sets(points, target_points,
+                                         allowed_dtypes=(np.float32,))
+        st = compute_type3_statics(
+            np.asarray(x, np.float64), np.asarray(t, np.float64),
+            fft_direction, tol, real_dt=np.float32)
+        self._x, self._t = points, target_points
+        self.rank = st.rank
+        self.num_points = st.num_points
+        self.num_targets = st.num_targets
+        self.fine_shape = st.fine_shape
+        self.fft_direction = fft_direction
+        self.tol = float(tol)
+        self.options = options
+        dev = self.device
+
+        def planar32(z):
+            return torch.as_tensor(
+                np.stack([z.real, z.imag], axis=-1).astype(np.float32),
+                device=dev)
+        self._prephase = planar32(st.prephase)                # [M, 2]
+        self._postphase = planar32(st.postphase)              # [K, 2]
+
+        # Outer spread: raw ES-kernel spread onto the type-3 fine grid
+        # (spread-only geometry; kernel_scale not applied: the exact
+        # kernel-FT deconvolution lives in the postphase).
+        self._spread_spec = PlanSpec(
+            transform_type="type_1", fft_direction=fft_direction,
+            rank=self.rank, grid_shape=self.fine_shape,
+            dtype_name="complex64", tol=self.tol, points_range=0,
+            spread_only=True, backend=options.backend,
+            kernel_evaluation_method=options.kernel_evaluation_method)
+        self._spread_plan = make_plan(self._spread_spec)
+        # xi folded after its float32 cast, as the JAX package folds it.
+        xi32 = torch.as_tensor(st.xi.astype(np.float32), device=dev)
+
+        self._spread_level = "none"
+        self.geom = self.binned = self.weights = self.coords = None
+        margin = 16 * 2 ** 20
+        budget = binning.MATS_BYTES_BUDGET
+        inner_budget = budget
+        geom = binning.choose_geometry(
+            self.fine_shape, self._spread_plan.width, self.num_points)
+        if (dispatch.route(self._spread_spec, dev) != "xla"
+                and binning.geometry_valid(geom)):
+            outer_bytes = binning.mats_payload_bytes(geom)
+            inner_plan = make_plan(PlanSpec(
+                transform_type="type_2", fft_direction=fft_direction,
+                rank=self.rank, grid_shape=self.fine_shape,
+                dtype_name="complex64", tol=self.tol, points_range=0,
+                spread_only=False, backend=options.backend))
+            inner_geom = binning.choose_geometry(
+                inner_plan.fine_shape, inner_plan.width, self.num_targets)
+            inner_need = (binning.mats_payload_bytes(inner_geom)
+                          if (binning.geometry_valid(inner_geom)
+                              and binning.mats_supported(inner_geom))
+                          else margin)
+            outer_ok = binning.mats_supported(geom)
+            inner_fits_alone = inner_need <= budget - margin
+            if (outer_ok and inner_fits_alone
+                    and outer_bytes + inner_need <= budget):
+                self._spread_level = "mats"        # both stages fit
+            elif (outer_ok and not inner_fits_alone
+                    and outer_bytes + margin <= budget):
+                # The inner streams coords whatever is left to it; the
+                # outer takes the mats.
+                self._spread_level = "mats"
+            else:
+                # Leave the budget to the (dominant) inner stage.
+                self._spread_level = "binned"
+            used = outer_bytes if self._spread_level == "mats" else margin
+            inner_budget = max(budget - used, 1)
+            self.geom, self.binned = bin_for_plan(xi32, self._spread_plan,
+                                                  geom)
+            if self._spread_level == "mats":
+                self.weights = binning.build_weight_payload(
+                    self.binned, geom, self._spread_plan)
+            else:
+                self.coords = binning.build_coords_payload(self.binned)
+        else:
+            self._fine = FineSpread(xi32, self._spread_plan)
+
+        # Inner planned type-2 on the fine grid at the rescaled targets.
+        self._inner_t2 = PlannedNufft(
+            torch.as_tensor(st.theta.astype(np.float32), device=dev),
+            self.fine_shape, transform_type="type_2",
+            fft_direction=fft_direction, tol=self.tol, options=options,
+            payload_budget_bytes=inner_budget)
+        self._adjoint = None
+
+    @property
+    def device(self) -> torch.device:
+        return self._x.device
+
+    def adjoint(self) -> "Type3Plan":
+        """The adjoint type-3 plan: swapped point sets, flipped
+        direction (maps values [B, K, 2] back to strengths [B, M, 2])."""
+        if self._adjoint is None:
+            adj = Type3Plan(
+                self._t, self._x,
+                fft_direction=("backward"
+                               if self.fft_direction == "forward"
+                               else "forward"),
+                tol=self.tol, options=self.options)
+            adj._adjoint = self
+            self._adjoint = adj
+        return self._adjoint
+
+    def _spread(self, values_cm: torch.Tensor) -> torch.Tensor:
+        """Channel-major values [2B, M] -> planar fine grid [B, *fine, 2]."""
+        if self._spread_level == "none":
+            return self._fine.spread(values_cm)
+        return dispatch.spread(values_cm, self.binned, self.geom,
+                               self._spread_plan, kw=self.weights,
+                               coords=self.coords)
+
+    def _apply(self, source: torch.Tensor) -> torch.Tensor:
+        batch = source.shape[0]
+        src = pmul(source, self._prephase)
+        grid = self._spread(src.movedim(-1, 1).reshape(2 * batch,
+                                                       self.num_points))
+        vals = self._inner_t2._apply(grid)                # [B, K, 2]
+        return pmul(vals, self._postphase)
+
+    def __call__(self, source) -> torch.Tensor:
+        """Applies the transform: planar [B, M, 2] -> [B, K, 2]."""
+        source = as_tensor(source, device=self.device)
+        if source.dtype != torch.float32:
+            raise TypeError(
+                f"planar type-3 is float32-only, got "
+                f"{str(source.dtype).replace('torch.', '')}.")
+        if (source.ndim != 3 or source.shape[-1] != 2
+                or source.shape[1] != self.num_points):
+            raise ValueError(
+                f"planned planar type-3 expects a source of shape "
+                f"[B, {self.num_points}, 2]; got {tuple(source.shape)}")
+        # Bound fine-grid memory like the complex twin: the spread
+        # materializes [B, *fine_shape, 2] before the inner type-2, so
+        # chunk the batch at max_batch_size.
+        max_bs = self.options.max_batch_size
+        if max_bs is None:
+            max_bs = auto_max_batch_size(self._inner_t2.plan.spec)
+        return chunked_map(lambda s: _Type3Call.apply(s, self), source,
+                           max_bs)
+
+
+class _Type3Call(torch.autograd.Function):
+    """A planar type-3 apply whose backward is the adjoint plan's apply:
+    the planar-real transpose is the complex adjoint, which swaps the
+    point sets and flips the direction (JAX ``_type3_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, source, op):
+        ctx.op = op
+        return op._apply(source.contiguous())
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        return _Type3Call.apply(cotangent, ctx.op.adjoint()), None
+
+
+def nufft_type3(source, points, target_points,
+                fft_direction: str = "forward", tol: float = 1e-6,
+                options: Optional[Options] = None, device=None
+                ) -> torch.Tensor:
+    """Planar type-3 NUFFT (one-shot): builds a ``Type3Plan`` and applies
+    it to ``source`` [B, M, 2]; the planar twin of the top-level
+    ``nufft_type3``. The plan is built eagerly, so its inner type-2 is
+    banded where a plan built outside any call would be."""
+    source, points, target_points = entry_tensors(
+        source, points, target_points, device=device)
+    return Type3Plan(points, target_points, fft_direction, tol,
+                     options)(source)
+
+
+def nudft_type3(source, points, target_points,
+                fft_direction: str = "forward", device=None
+                ) -> torch.Tensor:
+    """Dense planar type-3 oracle: O(M*K); testing only.
+
+    source [..., M, 2], points [M, rank], target_points [K, rank]
+    -> [..., K, 2], in the inputs' precision (no TF32).
+    """
+    fft_direction = _validate_enum(
+        fft_direction, VALID_FFT_DIRECTIONS, "fft_direction")
+    source, points, target_points = entry_tensors(
+        source, points, target_points, device=device)
+    sign = -1.0 if fft_direction == "forward" else 1.0
+    with _full_precision_matmul():
+        phase = target_points @ points.T                  # [K, M]
+        cos = torch.cos(phase)
+        sin = sign * torch.sin(phase)
+        sr, si = source[..., 0], source[..., 1]
+        yr = sr @ cos.T - si @ sin.T
+        yi = sr @ sin.T + si @ cos.T
+    return torch.stack([yr, yi], dim=-1)

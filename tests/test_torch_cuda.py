@@ -1059,3 +1059,72 @@ def test_rank1_grads_and_spread_only_on_cuda_match_cpu(dev):
             out, s.grad, p.grad, fine, back, v.grad, q.grad)])
     for want, got in zip(*results):
         _close(got, want)
+
+
+@pytest.mark.parametrize("rank", (1, 2, 3))
+def test_type3_on_cuda_matches_cpu(dev, rank):
+    """The planar and complex64 type-3 plans on the card against the same
+    plans on the CPU (the plain pipeline), with the kernels of both
+    stages launched: the outer spread, the fold at rank 3 and the inner
+    type-2's interp and mode stage; complex128 launches none."""
+    rng = np.random.default_rng(30 + rank)
+    m, k = 3000, 2500
+    span = 4.0 if rank == 3 else 24.0
+    x = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, rank)).astype(
+        np.float32))
+    t = torch.from_numpy(rng.uniform(-span, span, (k, rank)).astype(
+        np.float32))
+    c = torch.from_numpy(rng.standard_normal((2, m, 2)).astype(np.float32))
+    counters = (spread.spread_planned_cuda, spread.spread_unplanned_cuda,
+                interp.interp_planned_cuda, interp.interp_unplanned_cuda,
+                interp.interp_banded_cuda, mode3d.fold3d_cuda,
+                mode3d.extend_tiles3d_cuda, fft3d.modes_to_fine_cuda)
+    results = []
+    for d in ("cpu", dev):
+        op = tnt.planar.Type3Plan(x.to(d), t.to(d))
+        before = [n.launches for n in counters]
+        out = op(c.to(d))
+        out_c = tnt.Type3Plan(x.to(d), t.to(d))(
+            torch.view_as_complex(c.to(d)))
+        launched = [n.launches - b for n, b in zip(counters, before)]
+        if d == dev:
+            # Outer spread (planned or unplanned), inner interp: once for
+            # each plan; at rank 3 also fold3d, extend and three passes.
+            assert sum(launched[:2]) == 2 and sum(launched[2:5]) == 2
+            assert launched[5:] == ([2, 2, 6] if rank == 3 else [0, 0, 0])
+            before = [n.launches for n in counters]
+            tnt.Type3Plan(x.to(d).double(), t.to(d).double())(
+                torch.view_as_complex(c.to(d).double()))
+            assert [n.launches for n in counters] == before
+        results.append([out.cpu(), torch.view_as_real(out_c).cpu()])
+    for want, got in zip(*results):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("budget", (None, 0))
+@pytest.mark.parametrize("transform_type", ("type_1", "type_2"))
+def test_batched_on_cuda_equals_loop(dev, monkeypatch, transform_type,
+                                     budget):
+    """BatchedPlannedNufft on the card equals its per-plan loop bit for
+    bit, at the "mats" level and, with the budget at 0, at the rank-2
+    "binned" level (coords, the unbanded kernels), and the CPU's output
+    within 1e-5."""
+    if budget is not None:
+        monkeypatch.setattr(binning, "MATS_BYTES_BUDGET", budget)
+    grid, s, m = (64, 64), 4, 5000
+    rng = np.random.default_rng(40)
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (s, m, 2)).astype(
+        np.float32))
+    shape = (s, m, 2) if transform_type == "type_1" else (s,) + grid + (2,)
+    src = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    results = []
+    for d in ("cpu", dev):
+        op = tnt.planar.BatchedPlannedNufft(pts.to(d), grid,
+                                            transform_type=transform_type)
+        assert [sh.level for sh in op._shards] == [
+            "mats" if budget is None else "binned"] * s
+        got = op(src.to(d))
+        for i, sh in enumerate(op._shards):
+            assert torch.equal(got[i], sh(src[i][None].to(d))[0])
+        results.append(got.cpu())
+    _close(results[1], results[0])

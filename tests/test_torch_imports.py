@@ -41,6 +41,11 @@ def test_import_leaves_jax_unloaded():
             "import tensorflow_nufft_tpu_torch.fft.fft_ops; "
             "t.planar.PlannedNufft; t.planar.ToeplitzNormal; t.nufft; "
             "t.models.mri.SenseNufft; t.models.mri.cg_sense; "
+            "import tensorflow_nufft_tpu_torch.ops.type3; "
+            "t.Type3Plan; t.nufft_type3; t.nudft_type3; "
+            "t.planar.Type3Plan; t.planar.nufft_type3; "
+            "t.planar.nudft_type3; t.planar.BatchedPlannedNufft; "
+            "t.PlannedNufft.batch_build; t.PlannedNufft.from_batch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tensorflow_nufft_tpu', 'pydantic')]; "
             "assert not bad, bad")
