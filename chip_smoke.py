@@ -44,6 +44,17 @@ Phases:
    ``apply_to_slots``/``apply_from_slots`` against ``to_slots``/
    ``from_slots`` of the point-order applies, to 1e-5 of the peak; times
    of ``normal`` against the composed pair.
+5a. The native engine ("native"): builds ``cc/nufft_cpu.cc`` with g++
+   (its seconds and OpenMP threads printed) and runs complex128 type-1
+   and type-2 at the 2D headline through ``tnt.nufft`` with
+   ``Options(backend="native")`` on CUDA tensors: the output on the card,
+   no kernel launched, within 1e-10 of the peak of the card's float64
+   route and 1e-12 of ``tnt.native.nufft`` on the same numpy data; the
+   float32 planned type-1 and type-2 of the headline at err_impl < tol
+   against the native complex128 result (bench.py's gate), printed
+   beside their err_impl against the port's float64 plain pipeline (the
+   two references within 1e-9 of each other); the native calls' host
+   times.
 5b. The complex API ("complex2d"): with the counters zeroed, complex64
    ``nufft`` type-1 and type-2 in both directions, ``interp`` and
    ``spread`` on the 512^2 grid and a training step (x [8, 256, 256]
@@ -239,6 +250,7 @@ Usage: python3 chip_smoke.py [--profile]
 import contextlib
 import functools
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -262,6 +274,10 @@ KERNEL_RTOL = 1e-5
 FFT_RTOL = 2e-6
 WARMUP = 3
 REPS = 25
+# Where the spans phase's profiling.trace writes (build/ is ignored by
+# git).
+TRACE_DIR = str(pathlib.Path(__file__).resolve().parent / "build"
+                / "torch_traces")
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside
 # the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -3710,6 +3726,276 @@ def profile_phase(label, cases, calls=20):
                 f"{k[:70]} {v:.4f} ms" for k, v in top))
 
 
+def native_phase(points, z, modes, op1, op2, strengths, modes_p, dev):
+    """The native engine (``Options(backend="native")``) at the 2D
+    headline: builds the engine (g++), runs complex128 type-1 and type-2
+    through ``tnt.nufft`` on CUDA tensors, and holds them and the float32
+    planned headline to each other. Gates: the outputs stay on the card
+    with no kernel launched; each within 1e-10 of the peak of the card's
+    float64 route (``backend="xla"``, the JAX package's own gate); each
+    within 1e-12 of the peak of ``tnt.native.nufft`` on the same numpy
+    data (the same engine, with numpy's FFT in place of torch.fft); the
+    float32 planned type-1 and type-2 at err_impl < tol against the
+    native complex128 result, bench.py's gate, beside their err_impl
+    against the port's float64 plain pipeline (the two references must
+    agree within 1e-9 of the peak). Times the native calls on the host
+    (median of 5, with the copies)."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch import native
+    from tensorflow_nufft_tpu_torch.native import engine
+    from tensorflow_nufft_tpu_torch.planar import from_planar, to_planar
+
+    start = time.perf_counter()
+    if not native.available():
+        engine._load()                # raises with the compiler's output
+    log(f"native: engine ready in {time.perf_counter() - start:.3f} s "
+        f"(g++ ran: {engine.BuildInfo.compiled}, "
+        f"{engine.BuildInfo.seconds:.3f} s) -> {engine.BuildInfo.path}; "
+        f"tfft_num_threads() {engine.num_threads()}")
+    grid = (GRID, GRID)
+    p64 = points.astype(np.float64)
+    x64 = torch.from_numpy(p64).to(dev)
+    host = {"type_1": z.astype(np.complex128),
+            "type_2": modes.astype(np.complex128)}
+    exact = {"type_1": exact2d_type1(
+                 torch.from_numpy(host["type_1"]).to(dev)[None], x64,
+                 -1.0)[0].cpu(),
+             "type_2": exact2d_type2(
+                 torch.from_numpy(host["type_2"]).to(dev)[None], x64,
+                 -1.0)[0].cpu()}
+    # The port's float64 plain pipeline (CPU tensors), end_to_end's
+    # err_impl reference.
+    pts_cpu = torch.from_numpy(p64)
+    plain = {"type_1": from_planar(tnt.planar.nufft(
+                 to_planar(host["type_1"]), pts_cpu, grid_shape=grid,
+                 transform_type="type_1", tol=TOL)),
+             "type_2": from_planar(tnt.planar.nufft(
+                 to_planar(host["type_2"]), pts_cpu,
+                 transform_type="type_2", tol=TOL))}
+    f32 = {"type_1": from_planar(op1(strengths[None])[0]).cpu(),
+           "type_2": from_planar(op2(modes_p[None])[0]).cpu()}
+    times, failed = {}, []
+    for kind in ("type_1", "type_2"):
+        src = torch.from_numpy(host[kind]).to(dev)
+
+        def call(backend, src=src, kind=kind):
+            kw = dict(grid_shape=grid) if kind == "type_1" else {}
+            return tnt.nufft(src, x64, transform_type=kind, tol=TOL,
+                             options=tnt.Options(backend=backend), **kw)
+        reset_launches()
+        out = call("native")
+        torch.cuda.synchronize()
+        no_launches(f"native {kind}")
+        if out.device != dev or out.dtype != torch.complex128:
+            raise RuntimeError(f"native {kind}: output on {out.device}, "
+                               f"{out.dtype}")
+        out = out.cpu()
+        err_xla = rel(out, call("xla").cpu())
+        kw = dict(grid_shape=grid) if kind == "type_1" else {}
+        eager = torch.from_numpy(native.nufft(
+            host[kind], p64, transform_type=kind, tol=TOL, **kw))
+        err_eager = rel(out, eager)
+        scale = float(exact[kind].abs().max())
+        refs_agree = rel(out, plain[kind])
+        err_native = float((f32[kind].to(torch.complex128) - out).abs().max()
+                           ) / scale
+        err_plain = float((f32[kind].to(torch.complex128)
+                           - plain[kind]).abs().max()) / scale
+        wall = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call("native")
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        times[kind] = statistics.median(wall)
+        log(f"native {kind}: on {dev}, vs the float64 route {err_xla:.3e} "
+            f"(gate < 1e-10); vs tnt.native.nufft {err_eager:.3e} (gate < "
+            f"1e-12); native vs f64 plain pipeline {refs_agree:.3e} (gate < "
+            f"1e-9); float32 planned {kind} err_impl vs native complex128 "
+            f"{err_native:.3e}, vs f64 plain pipeline {err_plain:.3e} (gate "
+            f"< {TOL:g}); host time {times[kind]:.4f} ms (median of 5, "
+            f"{engine.num_threads()} threads, copies included)")
+        if not err_xla < 1e-10:
+            failed.append(f"{kind} vs float64 route")
+        if not err_eager < 1e-12:
+            failed.append(f"{kind} vs tnt.native.nufft")
+        if not refs_agree < 1e-9:
+            failed.append(f"{kind}: the native reference and the f64 plain "
+                          f"pipeline disagree ({refs_agree:.3e})")
+        if not err_native < TOL:
+            failed.append(f"{kind} float32 planned err_impl vs native")
+    if failed:
+        raise RuntimeError(f"native phase gates failed: {failed}")
+    return times
+
+
+# The hand-written kernels (their CUDA function names) and the spans the
+# stage that launches each may run under: the spread (its window kernel
+# included) under the spread span of a transform or of a type-3 outer
+# spread; fold3d in the type-1 mode stage, or in a type-3 outer spread
+# (which folds its tiles); the FFT kernel in either mode stage; the
+# extend in the type-2 mode stage; the interp in the interp span. A
+# planar Type3Plan's inner type-2 is a PlannedNufft, which has no spans,
+# so its kernels run under nufft3.inner_t2.
+SPAN_STAGES = {
+    "spread_rows_kernel": ("nufft.spread", "nufft3.spread"),
+    "spread_line_kernel": ("nufft.spread", "nufft3.spread"),
+    "windows_kernel": ("nufft.spread", "nufft3.spread"),
+    "fold3d_kernel": ("nufft.mode_dft_deconvolve", "nufft3.spread"),
+    "fft_axis_kernel": ("nufft.mode_dft_deconvolve", "nufft.amplify_dft",
+                        "nufft3.inner_t2"),
+    "extend_tiles3d_kernel": ("nufft.amplify_dft", "nufft3.inner_t2"),
+    "interp_rows_kernel": ("nufft.interp", "nufft3.inner_t2"),
+    "interp_line_kernel": ("nufft.interp", "nufft3.inner_t2"),
+}
+
+
+def is_span(name):
+    return name.startswith(("nufft.", "nufft3."))
+
+
+class SpanIndex:
+    """The stage span of each device activity of a profile: the nearest
+    ``nufft.*``/``nufft3.*`` span enclosing, on the host timeline, the
+    start of the runtime or driver call that launched it (the host event
+    with the activity's correlation id)."""
+
+    def __init__(self, events):
+        from torch.autograd import DeviceType
+        cpu = [e for e in events if e.device_type == DeviceType.CPU]
+        self.spans = sorted((e for e in cpu if is_span(e.name)),
+                            key=lambda e: e.time_range.start)
+        self.launches = {e.id: e for e in cpu
+                         if getattr(e, "linked_correlation_id", 0)
+                         or e.name.startswith(("cuda", "cu"))}
+        self.device = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def span_of(self, evt):
+        launch = self.launches.get(evt.id)
+        if launch is None:
+            return None
+        t, inner = launch.time_range.start, None
+        for span in self.spans:
+            if span.time_range.start > t:
+                break
+            if t <= span.time_range.end:
+                inner = span
+        return inner.name if inner is not None else None
+
+
+def spans_inputs():
+    """The 2D and 3D headline inputs on the host: (points, z, modes)."""
+    _, points, z, modes = inputs()
+    return (points, z, modes), inputs3d()
+
+
+def spans_phase(dev, logdir):
+    """The stage spans on the card: one call each of the unplanned 2D
+    type-1 and type-2 at the headline, the unplanned 3D type-1 and type-2
+    at the 3D headline, the complex128 (float64 route) 2D type-1 and one
+    apply of bench_suite.py's 3d_t3_500k_500k, each under
+    ``torch.profiler``. Gates: each call shows its expected spans; every
+    launch of a hand-written kernel sits under its stage's span
+    (``SPAN_STAGES``); ``profiling.trace(logdir)`` writes a trace file.
+    Prints the device ms under each span per call."""
+    import pathlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import tensorflow_nufft_tpu_torch as tnt
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.planar import to_planar
+    from tensorflow_nufft_tpu_torch.utils import profiling
+
+    (p2, z2, m2), (p3, z3, m3) = spans_inputs()
+    pts2, pts3 = torch.from_numpy(p2).to(dev), torch.from_numpy(p3).to(dev)
+    s2, f2 = to_planar(z2).to(dev), to_planar(m2).to(dev)
+    s3, f3 = to_planar(z3).to(dev), to_planar(m3).to(dev)
+    c128 = torch.from_numpy(z2.astype(np.complex128)).to(dev)
+    x64 = pts2.double()
+    x, t, zt = type3_inputs(3, 500_000, 16.0)
+    op3 = planar.Type3Plan(torch.from_numpy(x).to(dev),
+                           torch.from_numpy(t).to(dev), tol=TOL)
+    src3 = torch.view_as_real(torch.from_numpy(zt).to(dev))[None]
+    src3 = src3.contiguous()
+    del x, t, zt
+    planar_t1 = ("nufft.fold_rescale", "nufft.spread",
+                 "nufft.mode_dft_deconvolve")
+    planar_t2 = ("nufft.fold_rescale", "nufft.amplify_dft", "nufft.interp")
+    cases = {
+        "2d_t1_unplanned": (lambda: planar.nufft(
+            s2, pts2, grid_shape=(GRID, GRID), transform_type="type_1",
+            tol=TOL), planar_t1),
+        "2d_t2_unplanned": (lambda: planar.nufft(
+            f2, pts2, transform_type="type_2", tol=TOL), planar_t2),
+        "3d_t1_unplanned": (lambda: planar.nufft(
+            s3, pts3, grid_shape=GRID3, transform_type="type_1",
+            tol=TOL), planar_t1),
+        "3d_t2_unplanned": (lambda: planar.nufft(
+            f3, pts3, transform_type="type_2", fft_direction="backward",
+            tol=TOL), planar_t2),
+        "2d_t1_complex128": (lambda: tnt.nufft(
+            c128, x64, grid_shape=(GRID, GRID), transform_type="type_1",
+            tol=TOL), ("nufft.fold_rescale", "nufft.spread", "nufft.fft",
+                       "nufft.deconvolve")),
+        "3d_t3_500k_500k": (lambda: op3(src3),
+                            ("nufft3.spread", "nufft3.inner_t2")),
+    }
+    failed = []
+    for label, (fn, expect) in cases.items():
+        fn()                                            # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        index = SpanIndex(prof.events())
+        names = {s.name for s in index.spans}
+        missing = [n for n in expect if n not in names]
+        per_span, launches, outside = {}, {}, []
+        for evt in index.device:
+            if is_span(evt.name):
+                continue        # a span's own device-timeline annotation
+            span = index.span_of(evt)
+            ms = evt.time_range.elapsed_us() / 1e3
+            per_span[span or "(none)"] = per_span.get(span or "(none)",
+                                                      0.0) + ms
+            kernel = next((k for k in SPAN_STAGES if k in evt.name), None)
+            if kernel is None:
+                continue
+            launches[kernel] = launches.get(kernel, 0) + 1
+            if span not in SPAN_STAGES[kernel]:
+                outside.append(f"{kernel} under {span}")
+        log(f"spans {label}: spans {sorted(names)}; hand-written launches "
+            f"{launches or 0}; device ms per span: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(per_span.items())))
+        if missing:
+            failed.append(f"{label}: no span {missing}")
+        if outside:
+            failed.append(f"{label}: {sorted(set(outside))}")
+        if label != "2d_t1_complex128" and not launches:
+            failed.append(f"{label}: the profile shows no hand-written "
+                          f"kernel")
+    logdir = pathlib.Path(logdir)
+    with profiling.trace(str(logdir)):
+        cases["2d_t1_unplanned"][0]()
+    files = [f for f in logdir.rglob("*.json") if f.stat().st_size > 0]
+    log(f"spans: profiling.trace wrote {[str(f) for f in files]}")
+    if not files:
+        failed.append(f"profiling.trace wrote no file under {logdir}")
+    if failed:
+        raise RuntimeError(f"spans phase failed: {failed}")
+
+
+def timed_phase(label, fn, *args):
+    """Runs a phase and prints its wall time."""
+    start = time.perf_counter()
+    out = fn(*args)
+    log(f"{label} phase: {time.perf_counter() - start:.1f} s wall")
+    return out
+
+
 def main():
     smi = environment()
     import torch
@@ -3727,6 +4013,8 @@ def main():
     if "--profile" in sys.argv:
         profile_phase("2d", transform_cases(
             op1, op2, pts, strengths, modes_p, (GRID, GRID), {}))
+    timed_phase("native", native_phase, points, z, modes, op1, op2,
+                strengths, modes_p, dev)
     del op1, op2, pts, strengths, modes_p
     phases["complex2d"], cases = complex_phase_2d(points, z, modes, dev)
     if "--profile" in sys.argv:
@@ -3749,6 +4037,8 @@ def main():
     if "--profile" in sys.argv:
         profile_phase("type3", cases)
     del cases
+    torch.cuda.empty_cache()
+    timed_phase("spans", spans_phase, dev, TRACE_DIR)
     torch.cuda.empty_cache()
     points3, z3, modes3 = inputs3d()
     results.update(kernel_phase_3d(points3, dev))

@@ -10,7 +10,10 @@ FFT, run as hand-written CUDA kernels on float32 CUDA tensors
 (``csrc/``, built with nvcc at first use) and as their plain PyTorch
 versions on CPU tensors. Float64 on the card, and
 ``Options(backend='xla')``, run the torch-op counterpart of the JAX
-package's XLA path (``kernels.xla_ops``, ``fft.fft_ops``). Everything
+package's XLA path (``kernels.xla_ops``, ``fft.fft_ops``);
+``Options(backend='native')`` runs that path's spread and interp on the
+native C++ host engine (``native``, also an eager NumPy API). Each stage
+of a transform is a ``utils.profiling`` span in profiler traces. Everything
 else (binning, the rank-1 and rank-2 mode stages and FFT) is plain
 torch, mirroring the JAX package module for module. Numpy input goes to
 the CUDA card unless the caller passes ``device=``. The transforms are
@@ -29,7 +32,7 @@ Typical usage::
 """
 
 from tensorflow_nufft_tpu_torch.__about__ import __version__
-from tensorflow_nufft_tpu_torch import models, planar
+from tensorflow_nufft_tpu_torch import models, native, planar
 from tensorflow_nufft_tpu_torch.ops.nufft_ops import (
     interp, nudft, nufft, spread)
 from tensorflow_nufft_tpu_torch.ops.type3 import (

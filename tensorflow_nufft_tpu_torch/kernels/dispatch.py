@@ -5,16 +5,19 @@ Counterpart of the spread/interp entry points of
 transforms (with the planned levels' inputs: windows, or coords and the
 rank-3 band, and slot-order values in or out), the fused banded spread
 of the type-1 route, the full-fine-grid ``spread``/``interp`` of the
-spread-only ops and ``interp_deriv`` of their points gradients. A CUDA tensor goes
-to the hand-written kernel (which raises on what it does not take, such
-as float64); a CPU tensor goes to the plain PyTorch version. There is no
-other branch and no fallback.
+spread-only ops and ``interp_deriv`` of their points gradients. A CUDA
+tensor goes to the hand-written kernel (which raises on what it does not
+take, such as float64); a CPU tensor goes to the plain PyTorch version.
+There is no fallback between the two.
 
 Which of these a transform takes at all is ``route``'s rule, decided once
 from the plan spec and the device before anything launches: the kernels
-(float32 on the card), their plain versions (the CPU), or the torch-op
+(float32 on the card), their plain versions (the CPU), the torch-op
 counterpart of the JAX package's XLA path (``kernels.xla_ops`` and
-``fft.fft_ops``: float64 on the card, and ``backend='xla'``).
+``fft.fft_ops``: float64 on the card, and ``backend='xla'``), or the
+native C++ host engine (``backend='native'``: ``native_spread`` and
+``native_interp``, the JAX package's host callbacks, on the XLA path's
+mode stages).
 
 The full-grid entry points take and return planar grids [B, *fine, 2],
 whose channel fold (b, re/im) is the tiles' channel order, and window
@@ -25,8 +28,9 @@ versions otherwise).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from tensorflow_nufft_tpu_torch.kernels import binning, mode3d
@@ -38,7 +42,7 @@ from tensorflow_nufft_tpu_torch.kernels.binning import (
 
 def route(spec, device) -> str:
     """The route of a transform of plan spec ``spec`` on ``device``:
-    "kernels", "plain" or "xla".
+    "kernels", "plain", "xla" or "native".
 
     The outcome of the JAX package's ``pallas_active`` (its VMEM model
     aside): the Pallas kernels serve float32 only, and float64 runs the
@@ -46,16 +50,14 @@ def route(spec, device) -> str:
     float64 CUDA tensors the XLA-path ops; CPU tensors run the kernels'
     plain versions (which compute float64 too); ``backend='xla'`` takes
     the XLA-path ops on any device. ``backend='pallas'`` on float64
-    raises, as in the JAX package; ``'native'`` is not ported.
+    raises, as in the JAX package. ``backend='native'`` takes the XLA
+    path with the native engine's spread and interp, on any device (card
+    tensors go to the host and back, as the JAX package's host callbacks
+    do; no kernel launches).
     """
     backend = spec.backend
-    if backend == "native":
-        raise NotImplementedError(
-            "backend='native' (the C++ host engine of the JAX package) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 6); use 'auto' or "
-            "'xla'")
-    if backend == "xla":
-        return "xla"
+    if backend in ("xla", "native"):
+        return backend
     if spec.dtype_name != "complex64":
         if backend == "pallas":
             raise ValueError(
@@ -203,3 +205,35 @@ def interp_deriv(tiles: torch.Tensor, binned: BinnedPoints,
             tiles, binned.tile_bounds, geom, plan, coords=coords,
             deriv_axis=axis)
     return _point_order(chunk_vals, binned, geom)
+
+
+def host_points(points_resc: Tuple[torch.Tensor, torch.Tensor]
+                ) -> np.ndarray:
+    """Float64 rescaled coordinates [M, rank] on the host from the
+    two-float pair (hi, lo), as the JAX package's ``_host_points``: the
+    native engine takes double points, and hi alone would lose the low
+    word."""
+    hi, lo = points_resc
+    return (hi.detach().cpu().double() + lo.detach().cpu().double()).numpy()
+
+
+def native_spread(values: torch.Tensor, points: np.ndarray, plan
+                  ) -> torch.Tensor:
+    """Complex values [B, M] + host points from ``host_points`` ->
+    complex fine grid [B, *fine] on the native engine (the JAX package's
+    ``_native_spread_callback``), on the device of ``values``."""
+    from tensorflow_nufft_tpu_torch.native import engine
+    fine = engine.spread(values.detach().resolve_conj().cpu().numpy(),
+                         points, plan.fine_shape, plan.width, plan.beta)
+    return torch.from_numpy(fine).to(values.device)
+
+
+def native_interp(grid: torch.Tensor, points: np.ndarray, plan
+                  ) -> torch.Tensor:
+    """Complex fine grid [B, *fine] + host points -> complex values
+    [B, M] on the native engine (``_native_interp_callback``), on the
+    device of ``grid``."""
+    from tensorflow_nufft_tpu_torch.native import engine
+    vals = engine.interp(grid.detach().resolve_conj().cpu().numpy(), points,
+                         plan.width, plan.beta)
+    return torch.from_numpy(vals).to(grid.device)

@@ -19,7 +19,18 @@ op and their points gradient the derivative-kernel interp
 Each transform takes the route of ``dispatch.route``: the tiled kernels
 (or their plain versions), or, for float64 on the card and
 ``backend='xla'``, the JAX package's XLA path in torch ops
-(``_execute_xla``), on the complex view of the planar tensors.
+(``_execute_xla``), on the complex view of the planar tensors; with
+``backend='native'`` the same path with the native engine's spread and
+interp (the JAX package's host callbacks). The spread-only ops' points
+gradients take the XLA-path ops there: the engine has no derivative
+kernel, as in the JAX package.
+
+Each stage runs in a ``utils.profiling.scope`` span of its JAX name:
+``nufft.fold_rescale``, ``nufft.spread``, ``nufft.mode_dft_deconvolve``,
+``nufft.amplify_dft`` and ``nufft.interp`` on the tiled route (the JAX
+planar core's), ``nufft.fft``, ``nufft.deconvolve`` and
+``nufft.amplify`` in their place on the XLA path and the native engine
+(the JAX complex core's).
 """
 
 from __future__ import annotations
@@ -40,6 +51,10 @@ from tensorflow_nufft_tpu_torch.kernels.torch_ops import (
 from tensorflow_nufft_tpu_torch.ops.core import _mode_grid, _replace
 from tensorflow_nufft_tpu_torch.plan.plan import (
     PlanSpec, check_fine_grid_size, make_plan)
+from tensorflow_nufft_tpu_torch.utils import profiling as prof
+
+# The routes that run the XLA path's full-grid pipeline (_execute_xla).
+FULL_GRID_ROUTES = ("xla", "native")
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -78,45 +93,93 @@ def _execute_planar(source: torch.Tensor, points: torch.Tensor,
     source = source.contiguous()
     batch = source.shape[0]
     check_fine_grid_size(plan, 2 * batch)    # planar: re/im channel pair
-    if dispatch.route(spec, source.device) == "xla":
-        return _execute_xla(source, points, plan)
-    geom, binned = bin_for_plan(points, plan)
+    route = dispatch.route(spec, source.device)
+    if route in FULL_GRID_ROUTES:
+        return _execute_xla(source, points, plan, route)
+    with prof.scope("nufft.fold_rescale"):
+        geom, binned = bin_for_plan(points, plan)
     if spec.transform_type == "type_1":
         if spec.spread_only:
-            fine = dispatch.spread(_fold(source), binned, geom, plan)
+            with prof.scope("nufft.spread"):
+                fine = dispatch.spread(_fold(source), binned, geom, plan)
             return fine * plan.kernel_scale
-        tiles = dispatch.spread_tiled(_fold(source), binned, geom, plan)
-        return dft_truncate_deconvolve_tiled(tiles, plan, geom, batch)
+        with prof.scope("nufft.spread"):
+            tiles = dispatch.spread_tiled(_fold(source), binned, geom, plan)
+        with prof.scope("nufft.mode_dft_deconvolve"):
+            return dft_truncate_deconvolve_tiled(tiles, plan, geom, batch)
     if spec.spread_only:
-        values = dispatch.interp(source, binned, geom, plan)
+        with prof.scope("nufft.interp"):
+            values = dispatch.interp(source, binned, geom, plan)
         return _unfold(values, batch) * plan.kernel_scale
-    tiles = amplify_pad_dft_tiled(source, plan, geom)
-    values = dispatch.interp_tiled(tiles, binned, geom, plan)
+    with prof.scope("nufft.amplify_dft"):
+        tiles = amplify_pad_dft_tiled(source, plan, geom)
+    with prof.scope("nufft.interp"):
+        values = dispatch.interp_tiled(tiles, binned, geom, plan)
     return _unfold(values, batch)
 
 
+def full_grid_windows(points_resc, plan, route: str):
+    """What a full-grid route's spread and interp read of the points:
+    the native engine's float64 host points, or the XLA-path window
+    indices and values (``xla_ops.spread_geometry``)."""
+    if route == "native":
+        return dispatch.host_points(points_resc)
+    return xla_ops.spread_geometry(points_resc, plan)
+
+
+def spread_full(values: torch.Tensor, windows, plan,
+                route: str) -> torch.Tensor:
+    """Complex values [B, M] -> complex fine grid [B, *fine] on a full-grid
+    route, from ``full_grid_windows``: the native engine, or the XLA-path
+    ops (the JAX package's ``dispatch.spread`` off the Pallas kernels)."""
+    if route == "native":
+        return dispatch.native_spread(values, windows, plan)
+    return xla_ops.spread_xla(values, *windows, plan)
+
+
+def interp_full(grid: torch.Tensor, windows, plan,
+                route: str) -> torch.Tensor:
+    """Complex fine grid [B, *fine] -> complex values [B, M] on a
+    full-grid route (``spread_full``'s transpose)."""
+    if route == "native":
+        return dispatch.native_interp(grid, windows, plan)
+    return xla_ops.interp_xla(grid, *windows, plan)
+
+
 def _execute_xla(source: torch.Tensor, points: torch.Tensor,
-                 plan) -> torch.Tensor:
-    """``_execute_planar`` on the XLA-path ops: the JAX package's
-    ``ops.core._execute`` on the complex view of ``source``."""
+                 plan, route: str = "xla") -> torch.Tensor:
+    """``_execute_planar`` on a full-grid route (``spread_full``): the
+    JAX package's ``ops.core._execute`` on the complex view of
+    ``source``."""
     spec = plan.spec
     z = torch.view_as_complex(source)
-    points_resc = fold_and_rescale_split(points, plan.fine_shape,
-                                         spec.points_range)
-    indices, kernels = xla_ops.spread_geometry(points_resc, plan)
+    with prof.scope("nufft.fold_rescale"):
+        points_resc = fold_and_rescale_split(points, plan.fine_shape,
+                                             spec.points_range)
     if spec.transform_type == "type_1":
-        fine = xla_ops.spread_xla(z, indices, kernels, plan)
+        with prof.scope("nufft.spread"):
+            fine = spread_full(z, full_grid_windows(points_resc, plan, route),
+                               plan, route)
         if spec.spread_only:
             out = fine * plan.kernel_scale
         else:
-            out = deconvolve(fft_fine(fine, plan.rank, spec.fft_direction),
-                             plan)
+            with prof.scope("nufft.fft"):
+                fine = fft_fine(fine, plan.rank, spec.fft_direction)
+            with prof.scope("nufft.deconvolve"):
+                out = deconvolve(fine, plan)
     elif spec.spread_only:
-        out = xla_ops.interp_xla(z, indices, kernels, plan) \
-            * plan.kernel_scale
+        with prof.scope("nufft.interp"):
+            out = interp_full(z, full_grid_windows(points_resc, plan, route),
+                              plan, route)
+        out = out * plan.kernel_scale
     else:
-        grid = fft_fine(amplify(z, plan), plan.rank, spec.fft_direction)
-        out = xla_ops.interp_xla(grid, indices, kernels, plan)
+        with prof.scope("nufft.amplify"):
+            grid = amplify(z, plan)
+        with prof.scope("nufft.fft"):
+            grid = fft_fine(grid, plan.rank, spec.fft_direction)
+        with prof.scope("nufft.interp"):
+            out = interp_full(grid, full_grid_windows(
+                points_resc, plan, route), plan, route)
     return torch.view_as_real(out)
 
 
@@ -239,9 +302,10 @@ def _spread_only_points_grad(source, points, cotangent, spec: PlanSpec):
 def _deriv_interps(grid_side: torch.Tensor, points: torch.Tensor, plan):
     """Per axis d, the planar grid [B, *grid, 2] interpolated at the
     points with phi' on axis d: [B, M, 2] each, on the route of
-    ``dispatch.route``."""
+    ``dispatch.route`` (the XLA-path ops for the native engine, which
+    has no phi')."""
     batch = grid_side.shape[0]
-    if dispatch.route(plan.spec, grid_side.device) == "xla":
+    if dispatch.route(plan.spec, grid_side.device) in FULL_GRID_ROUTES:
         points_resc = fold_and_rescale_split(points, plan.fine_shape,
                                              plan.spec.points_range)
         fine = torch.view_as_complex(grid_side.contiguous())

@@ -42,17 +42,19 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tensorflow_nufft_tpu_torch.kernels import dispatch, xla_ops
+from tensorflow_nufft_tpu_torch.kernels import dispatch
 from tensorflow_nufft_tpu_torch.kernels.torch_ops import (
     fold_and_rescale_split)
 from tensorflow_nufft_tpu_torch.ops.core import nufft_core
 from tensorflow_nufft_tpu_torch.ops.nufft_ops import _full_precision_matmul
 from tensorflow_nufft_tpu_torch.ops.planar_core import (
-    _fold, _unfold, bin_for_plan)
+    FULL_GRID_ROUTES, _fold, _unfold, bin_for_plan, full_grid_windows,
+    interp_full, spread_full)
 from tensorflow_nufft_tpu_torch.options.options import Options
 from tensorflow_nufft_tpu_torch.plan.plan import (
     EPSILON, MAX_ARRAY_SIZE, PlanSpec, auto_max_batch_size, es_kernel_np,
     kernel_beta, make_plan, select_kernel_width)
+from tensorflow_nufft_tpu_torch.utils import profiling as prof
 from tensorflow_nufft_tpu_torch.utils.batching import chunked_map
 from tensorflow_nufft_tpu_torch.utils.dtypes import (
     as_tensor, entry_tensors, real_dtype)
@@ -241,37 +243,38 @@ class FineSpread:
     postphase) and its transpose, the interp at the same points.
 
     The route is ``dispatch.route``'s: the unplanned tiled kernels (or
-    their plain versions), binned once here; or the XLA-path ops, whose
-    window indices and values are computed once here.
+    their plain versions), binned once here; or a full-grid route: the
+    XLA-path ops, whose window indices and values are computed once
+    here, or the native engine, whose float64 points are.
     """
 
     def __init__(self, xi: torch.Tensor, plan):
         self.plan = plan
         self.route = dispatch.route(plan.spec, xi.device)
-        if self.route == "xla":
-            self.windows = xla_ops.spread_geometry(
-                fold_and_rescale_split(xi, plan.fine_shape, 0), plan)
+        if self.route in FULL_GRID_ROUTES:
+            self.windows = full_grid_windows(
+                fold_and_rescale_split(xi, plan.fine_shape, 0), plan,
+                self.route)
         else:
             self.geom, self.binned = bin_for_plan(xi, plan)
 
     def spread(self, values_cm: torch.Tensor) -> torch.Tensor:
         """Channel-major values [2B, M] -> planar fine grid
         [B, *fine, 2]."""
-        if self.route == "xla":
+        if self.route in FULL_GRID_ROUTES:
             batch = values_cm.shape[0] // 2
             z = torch.view_as_complex(
                 _unfold(values_cm, batch).contiguous())
             return torch.view_as_real(
-                xla_ops.spread_xla(z, *self.windows, self.plan))
+                spread_full(z, self.windows, self.plan, self.route))
         return dispatch.spread(values_cm, self.binned, self.geom, self.plan)
 
     def interp(self, grid: torch.Tensor) -> torch.Tensor:
         """Planar fine grid [B, *fine, 2] -> channel-major values
         [2B, M]."""
-        if self.route == "xla":
-            vals = xla_ops.interp_xla(
-                torch.view_as_complex(grid.contiguous()), *self.windows,
-                self.plan)
+        if self.route in FULL_GRID_ROUTES:
+            vals = interp_full(torch.view_as_complex(grid.contiguous()),
+                               self.windows, self.plan, self.route)
             return _fold(torch.view_as_real(vals))
         return dispatch.interp(grid.contiguous(), self.binned, self.geom,
                                self.plan)
@@ -411,9 +414,11 @@ class Type3Plan:
     def _apply_inner(self, src: torch.Tensor) -> torch.Tensor:
         """One inner batch: [B, M] -> [B, K]."""
         src = src * self._prephase
-        grid = torch.view_as_complex(_FineSpreadCall.apply(
-            torch.view_as_real(src), self._spread))
-        vals = nufft_core(grid, self._theta, self._t2_spec)
+        with prof.scope("nufft3.spread"):
+            grid = torch.view_as_complex(_FineSpreadCall.apply(
+                torch.view_as_real(src), self._spread))
+        with prof.scope("nufft3.inner_t2"):
+            vals = nufft_core(grid, self._theta, self._t2_spec)
         return vals * self._postphase
 
 

@@ -2,8 +2,15 @@
 
 The fields of ``tensorflow_nufft_tpu.options.Options``, as plain
 dataclasses (no pydantic) that validate on construction and on
-assignment, with the JAX package's validators and messages. The proto
-wire format (``to_proto``/``from_proto``) is not ported yet.
+assignment, with the JAX package's validators and messages.
+
+The proto wire format is the JAX package's (the reference's field
+numbers), written by the hand-written codec ``proto.nufft_options``:
+``to_proto()`` returns the serialized bytes, where the JAX method
+returns the protobuf message that serializes to them, and
+``from_proto`` takes those bytes or any protobuf message of the
+schema. ``show_warnings``, ``verbosity`` and
+``kernel_evaluation_method`` are not serialized, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 from typing import Optional
+
+from tensorflow_nufft_tpu_torch.proto import nufft_options as wire
 
 BACKENDS = ("auto", "xla", "pallas", "native")
 KERNEL_EVALUATION_METHODS = ("auto", "direct", "horner")
@@ -33,6 +42,13 @@ class FftwPlanningRigor(enum.IntEnum):
     PATIENT = 3
     EXHAUSTIVE = 4
 
+    def to_proto(self) -> int:
+        return int(self)
+
+    @classmethod
+    def from_proto(cls, pb) -> "FftwPlanningRigor":
+        return cls(int(pb))
+
 
 class PointsRange(enum.IntEnum):
     """Supported range of the nonuniform points.
@@ -44,6 +60,13 @@ class PointsRange(enum.IntEnum):
     STRICT = 0
     EXTENDED = 1
     INFINITE = 2
+
+    def to_proto(self) -> int:
+        return int(self)
+
+    @classmethod
+    def from_proto(cls, pb) -> "PointsRange":
+        return cls(int(pb))
 
 
 def _bool(name, v):
@@ -107,6 +130,16 @@ class DebuggingOptions(_Validated):
     def _check_check_points_range(v):
         return _bool("check_points_range", v)
 
+    def to_proto(self) -> bytes:
+        """The serialized ``DebuggingOptions`` message."""
+        return wire.encode_debugging(self.check_points_range)
+
+    @classmethod
+    def from_proto(cls, pb) -> "DebuggingOptions":
+        """From serialized bytes or a protobuf message."""
+        return cls(check_points_range=wire.decode_debugging(
+            wire.as_bytes(pb)))
+
 
 @dataclasses.dataclass
 class FftwOptions(_Validated):
@@ -120,6 +153,16 @@ class FftwOptions(_Validated):
     @staticmethod
     def _check_planning_rigor(v):
         return _enum(FftwPlanningRigor, "planning_rigor", v)
+
+    def to_proto(self) -> bytes:
+        """The serialized ``FftwOptions`` message."""
+        return wire.encode_fftw(int(self.planning_rigor))
+
+    @classmethod
+    def from_proto(cls, pb) -> "FftwOptions":
+        """From serialized bytes or a protobuf message."""
+        return cls(planning_rigor=FftwPlanningRigor(
+            wire.decode_fftw(wire.as_bytes(pb))))
 
 
 @dataclasses.dataclass
@@ -139,9 +182,12 @@ class Options(_Validated):
             (``kernels.xla_ops``) on float64 CUDA tensors, and the
             kernels' plain versions on CPU tensors; 'xla' takes the
             torch-op path on any device; 'pallas' demands the kernels'
-            route (float32) and raises otherwise; 'native' (the JAX
-            package's C++ host engine) is not ported and raises
-            ``NotImplementedError`` when a transform runs.
+            route (float32) and raises otherwise; 'native' runs the
+            spread and interp on the C++/OpenMP host engine
+            (``tensorflow_nufft_tpu_torch.native``, built from
+            ``cc/nufft_cpu.cc`` with g++ at first use), copying card
+            tensors to the host and back; it raises ``RuntimeError``
+            where the engine cannot be built.
         upsampling_factor: Optional override of the fine-grid
             oversampling factor sigma (> 1.0); None selects
             automatically.
@@ -221,3 +267,29 @@ class Options(_Validated):
                 f"kernel_evaluation_method must be one of 'auto', "
                 f"'direct', 'horner', got {v!r}")
         return v
+
+    def to_proto(self) -> bytes:
+        """The serialized ``Options`` message (the JAX package's
+        ``to_proto().SerializeToString()``, byte for byte): the
+        submessages always, a zero scalar never, ``backend`` only when
+        not 'auto' and ``upsampling_factor`` only when set."""
+        return wire.encode_options(
+            self.debugging.to_proto(), self.fftw.to_proto(),
+            self.max_batch_size, int(self.points_range), self.backend,
+            self.upsampling_factor)
+
+    @classmethod
+    def from_proto(cls, pb) -> "Options":
+        """From serialized bytes or a protobuf message: unset or zero
+        fields take their defaults (None, 'auto'), as in the JAX
+        package."""
+        fields = wire.decode_options(wire.as_bytes(pb))
+        return cls(
+            debugging=DebuggingOptions(
+                check_points_range=fields["debugging"]),
+            fftw=FftwOptions(planning_rigor=fields["fftw"]),
+            max_batch_size=fields["max_batch_size"] or None,
+            points_range=PointsRange(fields["points_range"]),
+            backend=fields["backend"] or "auto",
+            upsampling_factor=fields["upsampling_factor"] or None,
+        )

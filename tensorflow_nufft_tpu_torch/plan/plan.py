@@ -298,7 +298,7 @@ def log_plan_summary(spec: "PlanSpec", verbosity: int) -> None:
         f"[tfft] plan: {spec.transform_type} {spec.fft_direction} "
         f"rank={spec.rank} grid={spec.grid_shape} tol={plan.tol:g} "
         f"sigma={plan.sigma} width={plan.width} beta={plan.beta:.4f} "
-        f"fine={plan.fine_shape}",
+        f"fine={plan.fine_shape} backend={spec.backend}",
         file=sys.stderr, flush=True)
 
 

@@ -14,8 +14,10 @@ entry_tensors``). On a float32 CUDA tensor the spread/interp stages,
 and at rank 3 the mode stages and their FFT, run the hand-written Hopper
 kernels; on a CPU tensor their plain PyTorch versions. Float64 on the
 card, and ``Options(backend='xla')`` anywhere, run the torch-op
-counterpart of the JAX package's XLA path (``kernels.dispatch.route``).
-``ToeplitzNormal`` is the Toeplitz-embedded normal operator.
+counterpart of the JAX package's XLA path (``kernels.dispatch.route``);
+``Options(backend='native')`` runs that path's spread and interp on the
+native C++ host engine. ``ToeplitzNormal`` is the Toeplitz-embedded
+normal operator.
 
 Gradients: ``nufft``, ``interp`` and ``spread`` are differentiable in
 ``source`` and ``points``; ``PlannedNufft``, ``BatchedPlannedNufft`` and
@@ -42,13 +44,15 @@ from tensorflow_nufft_tpu_torch.ops.nufft_ops import (
     _canonical_grid_shape, _full_precision_matmul, _validate_enum,
     check_points_range)
 from tensorflow_nufft_tpu_torch.ops.planar_core import (
-    bin_for_plan, nufft_core_planar, spread_only_core_planar)
+    FULL_GRID_ROUTES, bin_for_plan, nufft_core_planar,
+    spread_only_core_planar)
 from tensorflow_nufft_tpu_torch.ops.type3 import (
     FineSpread, compute_type3_statics, validate_type3_point_sets)
 from tensorflow_nufft_tpu_torch.options.options import Options
 from tensorflow_nufft_tpu_torch.plan.plan import (
     PlanSpec, auto_max_batch_size, log_plan_summary, make_plan,
     warn_if_tol_clamped)
+from tensorflow_nufft_tpu_torch.utils import profiling as prof
 from tensorflow_nufft_tpu_torch.utils.batching import chunked_map
 from tensorflow_nufft_tpu_torch.utils.dtypes import (
     FLOAT_DTYPES, as_tensor, dtype_name, entry_tensors)
@@ -273,10 +277,11 @@ class PlannedNufft:
       coarse axis-0 geometry with its axis-0 band (``band_info``), which
       the banded kernels use; a band that degenerates to the whole
       extended tile re-plans on the unbanded geometry.
-    - "none" for float64 points and ``backend='xla'`` (the JAX
-      package's Pallas path, like the port's kernels, is float32 only;
-      ``backend='pallas'`` on float64 raises): applies run
-      ``planar.nufft`` and slot order is point order.
+    - "none" for float64 points, ``backend='xla'`` and
+      ``backend='native'`` (the JAX package's Pallas path, like the
+      port's kernels, is float32 only; ``backend='pallas'`` on float64
+      raises): applies run ``planar.nufft`` and slot order is point
+      order.
 
     Each call then runs only the value-dependent work. Besides
     ``__call__`` and ``adjoint()``, the slot surface of iterative
@@ -348,7 +353,7 @@ class PlannedNufft:
         self._adjoint = None
         self.geom = self.binned = self.weights = self.coords = None
         self.band_info = None
-        if (dispatch.route(self.spec, points.device) == "xla"
+        if (dispatch.route(self.spec, points.device) in FULL_GRID_ROUTES
                 or points.dtype != torch.float32):
             # The JAX package plans only what its Pallas kernels serve.
             self.level = "none"
@@ -1083,7 +1088,7 @@ class Type3Plan:
         inner_budget = budget
         geom = binning.choose_geometry(
             self.fine_shape, self._spread_plan.width, self.num_points)
-        if (dispatch.route(self._spread_spec, dev) != "xla"
+        if (dispatch.route(self._spread_spec, dev) not in FULL_GRID_ROUTES
                 and binning.geometry_valid(geom)):
             outer_bytes = binning.mats_payload_bytes(geom)
             inner_plan = make_plan(PlanSpec(
@@ -1159,9 +1164,11 @@ class Type3Plan:
     def _apply(self, source: torch.Tensor) -> torch.Tensor:
         batch = source.shape[0]
         src = pmul(source, self._prephase)
-        grid = self._spread(src.movedim(-1, 1).reshape(2 * batch,
-                                                       self.num_points))
-        vals = self._inner_t2._apply(grid)                # [B, K, 2]
+        with prof.scope("nufft3.spread"):
+            grid = self._spread(src.movedim(-1, 1).reshape(
+                2 * batch, self.num_points))
+        with prof.scope("nufft3.inner_t2"):
+            vals = self._inner_t2._apply(grid)            # [B, K, 2]
         return pmul(vals, self._postphase)
 
     def __call__(self, source) -> torch.Tensor:

@@ -3,6 +3,7 @@ rule, against the JAX package."""
 
 import numpy as np
 import pytest
+import torch
 
 import tensorflow_nufft_tpu as tfft
 import tensorflow_nufft_tpu_torch as tnt
@@ -99,7 +100,9 @@ class TestRoute:
         ("complex64", "xla", "cuda", "xla"),
         ("complex64", "xla", "cpu", "xla"),
         ("complex64", "pallas", "cuda", "kernels"),
-        ("complex64", "pallas", "cpu", "plain")])
+        ("complex64", "pallas", "cpu", "plain"),
+        ("complex64", "native", "cuda", "native"),
+        ("complex128", "native", "cpu", "native")])
     def test_route(self, dtype_name, backend, device, want):
         assert dispatch.route(self._spec(dtype_name, backend),
                               device) == want
@@ -120,10 +123,20 @@ class TestRoute:
                 backend="pallas"), device="cpu")
 
     def test_native_not_ported(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tnt.nufft(np.zeros((16, 16), np.complex64),
-                      np.zeros((4, 2), np.float32), device="cpu",
-                      options=tnt.Options(backend="native"))
+        """The name predates the port of the native engine: backend=
+        'native' now runs the host engine, as the JAX package's eager
+        native API does."""
+        from tensorflow_nufft_tpu import native
+        rng = np.random.default_rng(0)
+        z = (rng.standard_normal((16, 16))
+             + 1j * rng.standard_normal((16, 16))).astype(np.complex64)
+        pts = rng.uniform(-np.pi, np.pi, (4, 2)).astype(np.float32)
+        got = tnt.nufft(z, pts, device="cpu",
+                        options=tnt.Options(backend="native"))
+        want = native.nufft(z, pts)
+        assert got.dtype == torch.complex64
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
 
     def test_xla_plans_take_level_none(self):
         pts = np.random.default_rng(0).uniform(-np.pi, np.pi, (50, 2))

@@ -1128,3 +1128,81 @@ def test_batched_on_cuda_equals_loop(dev, monkeypatch, transform_type,
             assert torch.equal(got[i], sh(src[i][None].to(d))[0])
         results.append(got.cpu())
     _close(results[1], results[0])
+
+
+def _all_launches():
+    wrappers = (spread.spread_planned_cuda, spread.spread_unplanned_cuda,
+                spread.spread_banded_cuda, spread.spread_dfta_cuda,
+                interp.interp_planned_cuda, interp.interp_unplanned_cuda,
+                interp.interp_banded_cuda, interp.interp_deriv_cuda,
+                mode3d.fold3d_cuda, mode3d.extend_tiles3d_cuda,
+                mode3d.fold2_cuda, fft3d.modes_to_fine_cuda,
+                fft3d.fine_to_modes_cuda, fft3d.fft3d_cuda)
+    return sum(w.launches for w in wrappers)
+
+
+@pytest.mark.parametrize("transform_type", ["type_1", "type_2"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_native_backend_on_cuda_launches_nothing(dev, transform_type,
+                                                 dtype):
+    """backend='native' on CUDA tensors: the host engine runs, the
+    result comes back to the card, no kernel launches; it agrees with
+    the same call on CPU tensors (the fold and the FFT run on each
+    device) within the JAX package's native-backend gates, 1e-10 of the
+    peak in complex128 and 1e-5 in complex64."""
+    from tensorflow_nufft_tpu_torch import native
+    if not native.available():
+        pytest.skip("native engine unavailable (no C++ compiler)")
+    rng = np.random.default_rng(3)
+    real = torch.float32 if dtype == torch.complex64 else torch.float64
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (500, 2))).to(real)
+    shape = (500,) if transform_type == "type_1" else (32, 48)
+    src = torch.from_numpy(rng.standard_normal(shape)
+                           + 1j * rng.standard_normal(shape)).to(dtype)
+    kw = dict(transform_type=transform_type, tol=1e-6,
+              options=tnt.Options(backend="native"))
+    if transform_type == "type_1":
+        kw["grid_shape"] = (32, 48)
+    before = _all_launches()
+    got = tnt.nufft(src.to(dev), pts.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert _all_launches() == before
+    assert got.is_cuda and got.dtype == dtype
+    want = tnt.nufft(src, pts, device="cpu", **kw)
+    rtol = 1e-5 if dtype == torch.complex64 else 1e-10
+    assert float((got.cpu() - want).abs().max()) <= rtol * float(
+        want.abs().max())
+
+
+def test_kernels_run_under_their_stage_spans(dev):
+    """The unplanned 2D and 3D transforms under torch.profiler: every
+    hand-written kernel launch sits under its stage's span."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    for grid in ((64, 96), (16, 16, 64)):
+        pts = torch.from_numpy(rng.uniform(
+            -np.pi, np.pi, (3000, len(grid))).astype(np.float32)).to(dev)
+        vals = torch.from_numpy(rng.standard_normal((3000, 2)).astype(
+            np.float32)).to(dev)
+        modes = torch.from_numpy(rng.standard_normal(grid + (2,)).astype(
+            np.float32)).to(dev)
+        for call in (lambda: tnt.planar.nufft(vals, pts, grid_shape=grid,
+                                              transform_type="type_1"),
+                     lambda: tnt.planar.nufft(modes, pts)):
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            index = chip_smoke.SpanIndex(prof.events())
+            seen = 0
+            for evt in index.device:
+                kernel = next((k for k in chip_smoke.SPAN_STAGES
+                               if k in evt.name), None)
+                if kernel is not None:
+                    seen += 1
+                    assert index.span_of(evt) in \
+                        chip_smoke.SPAN_STAGES[kernel], evt.name
+            assert seen >= 1
