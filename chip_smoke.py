@@ -13,6 +13,10 @@ entry points a user calls, on the card, with no JAX:
 - per-batch and type-3: bench_suite.py's 2d_t2_256_200k_b16_perbatch
   (16 trajectories of 200,000 points at 256^2; phase 5d) and its three
   type-3 cells (phase 5e), at bench_suite's sizes;
+- sharding (phase 5f): the JAX multichip dry run's calls at the CG-SENSE
+  cell's width (128^2, 8 coils, 32,768 radial points) on a (2, 4) mesh
+  of logical shards on this card, bench_suite's 2d_t3_200k_200k and the
+  3D headline on 2 points shards;
 - 3D: bench_suite.py's 3d_t1_128_800k / 3d_t2_128_800k, 128^3 modes,
   800,000 uniform points, tol 1e-6, seed 42, batch 1 (fine grid 256^3).
   The unplanned transforms tile it in 1024 tiles of ext (24, 24, 72),
@@ -98,6 +102,20 @@ Phases:
    7, complex64 Type3Plan within the same gates, the adjoint identity
    (1e-5) and the backward equal to adjoint() bit for bit; each stage
    kernel held to its plain version at the cell's geometry; times.
+5f. Sharding ("sharded"): the calls of the JAX package's multichip dry
+   run (``__graft_entry__._dryrun_impl``) through ``tnt.parallel`` at the
+   CG-SENSE cell's width on a (2, 4) ("data", "points") mesh repeating
+   this card (one process drives the 8 logical shards, in turn):
+   sharded_nufft type-2 and its loss gradient, type-1,
+   sharded_nufft_grid type-1 and type-2, ShardedPlannedNufft type-2,
+   normal, the planned loss gradient and the slot surface;
+   sharded_nufft_type3 at 2d_t3_200k_200k (batch 2); the 3D headline
+   through ShardedPlannedNufft on 2 points shards of 400,000 (binned,
+   uniform band). Each call counted alone (its blocks' launches, exactly);
+   outputs and gradients within 1e-5 of the peak of the unsharded port
+   calls and err_total < 10 * tol against exact NUDFTs; CUDA-event times
+   beside the unsharded calls (the cost of single-controller dispatch on
+   one card, not scaling).
 6. 3D kernels: at the unbanded 3D geometry, the unplanned spread and
    interp, fold3d and extend_tiles3d against their plain versions on
    the card, with the same 1e-5 bound; the per-slot-window kernels there
@@ -232,7 +250,8 @@ Phases:
 With --profile: for each transform, plan build and training step, the
 CUDA-event median, the device busy time per call from torch.profiler
 (the sum of the device activities of 20 calls, / 20), the idle share
-1 - busy / event time, and the largest device items.
+1 - busy / event time, and the largest device items. The stage-span
+phase runs before the first of these readings, right after phase 5.
 
 Every main path's launch count is read with the rank-3 calls of
 torch.fft on the card: the run fails if one ran (a fallback).
@@ -3698,10 +3717,366 @@ def type3_kernels(name, rank, op, src, dev):
     return results
 
 
+# The sharded phase: the calls of the JAX package's multichip dry run
+# (__graft_entry__._dryrun_impl, __graft_entry__.py:99-209) at the width
+# of bench_suite.py's CG-SENSE cell (the CG_* inputs), on a ("data",
+# "points") mesh of shape (2, 4) repeating this card; then the 3D
+# headline planned on 2 points shards and bench_suite.py's
+# 2d_t3_200k_200k sharded over 4.
+SH_MESH = (2, 4)
+SH_REPS = 10
+
+
+def sharded_call(label, fn, want):
+    """Runs ``fn`` once with every launch count at 0 and no plain
+    version allowed on the card path; fails unless the wrappers' counts
+    are ``want`` (wrapper -> launches) or torch.fft ran on a rank-3 grid
+    on the card. Returns its output."""
+    import torch
+    reset_launches()
+    with no_plain_calls(label):
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {k: n for k, n in step_launches().items() if n}
+    want = {w.__name__: n for w, n in want.items()}
+    log(f"sharded {label} launches: {counts}; rank-3 torch.fft calls on "
+        f"the card: {_CARD_FFT_PLAIN[0]}")
+    if counts != want or _CARD_FFT_PLAIN[0]:
+        raise RuntimeError(f"sharded {label}: launches {counts}, want "
+                           f"{want}")
+    return out
+
+
+def sharded_phase(dev, smi):
+    """The JAX multichip dry run's calls through tnt.parallel at the
+    CG-SENSE cell's width (128^2, 8 birdcage coils, 128 radial spokes of
+    256 samples, Shepp-Logan; tol 1e-6) on a (2, 4) ("data", "points")
+    mesh of this card: sharded_nufft type-2 of the coil images and the
+    gradient of its loss in the image, type-1 of the k-space,
+    sharded_nufft_grid type-1 and type-2 over "points" (the data axis
+    replicated, computed once), ShardedPlannedNufft type-2 ("mats"
+    shards), normal with slot_weights(ones), the gradient of the planned
+    loss through the apply and normal, the slot surface (a slot-order
+    data-consistency loss and its gradient; from_slots(to_slots(y)) == y
+    bit for bit); sharded_nufft_type3 at 2d_t3_200k_200k (batch 2); the
+    3D headline (128^3, 800,000 points) through ShardedPlannedNufft
+    type-1 and its adjoint on 2 points shards of 400,000 ("binned" with
+    the uniform band). Each call counted alone: the wrappers' launches
+    must be the blocks' (a zero fails). Gates: each output and gradient
+    within 1e-5 of the peak of the port's unsharded counterpart
+    (planar.nufft, PlannedNufft, planar.Type3Plan) on the same global
+    inputs, and err_total < 10 * tol against exact complex128 NUDFTs
+    (2D: 4096 seeded points or all modes; 3D: 4096 seeded elements;
+    type-3: phase 5e's gate on 4096 targets). Times: CUDA-event medians
+    of 10 of each sharded call beside its unsharded call (the type-3,
+    a one-shot transform, beside the planned and the one-shot
+    unsharded calls); on one card the blocks run in turn, so these are
+    the single-controller dispatch's cost, not scaling. Returns the
+    timed calls (label -> callable) for --profile."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.kernels import (fft3d, interp, mode3d,
+                                                    spread)
+    from tensorflow_nufft_tpu_torch.models import mri
+    from tensorflow_nufft_tpu_torch.parallel import (
+        Mesh, ShardedPlannedNufft, sharded_nufft, sharded_nufft_grid,
+        sharded_nufft_type3)
+    mesh = Mesh(np.array([str(dev)] * int(np.prod(SH_MESH))).reshape(
+        SH_MESH), ("data", "points"))
+    blocks, slabs = int(np.prod(SH_MESH)), SH_MESH[1]
+    n = CG_GRID[0]
+    x = torch.from_numpy(mri.radial_trajectory(CG_SPOKES, CG_SAMPLES)).to(
+        dev)
+    m = x.shape[0]
+    maps = torch.from_numpy(mri.birdcage_maps(CG_COILS, CG_GRID)).to(dev)
+    image = torch.from_numpy(mri.shepp_logan(CG_GRID)).to(dev)
+    log(f"sharded: mesh {mesh.shape} of {dev}, {m} points, grid {CG_GRID}, "
+        f"{CG_COILS} coils; {smi}")
+
+    # Exact complex128 operators of the cell: A (type-2 forward) and A^H.
+    x64 = x.double()
+    sub = np.random.default_rng(SEED + 20)
+    idx = torch.from_numpy(np.sort(sub.choice(m, SUBSET, replace=False))).to(
+        dev)
+
+    def cplx(p):
+        return torch.view_as_complex(p.double().contiguous())
+
+    def exact_a(s, points=x64):
+        return exact2d_type2(cplx(s), points, -1.0, n=n)
+
+    def exact_ah(y):
+        return exact2d_type1(y, x64, 1.0, n=n)
+
+    def image_grad(g):
+        """d/d image of a loss whose coil-image gradient is g (complex)."""
+        return torch.view_as_real((cplx(maps).conj() * g).sum(0))
+
+    failed = []
+
+    def gate(label, got, unsharded, exact=None, exact_idx=None):
+        err_u = rel(got, unsharded)
+        line = (f"sharded {label}: vs unsharded {err_u:.3e} of the peak "
+                f"(gate < {KERNEL_RTOL:g})")
+        ok = bool(torch.isfinite(got).all()) and err_u < KERNEL_RTOL
+        if exact is not None:
+            g = cplx(got) if not got.is_complex() else got
+            if exact_idx is not None:
+                g = g[:, exact_idx]
+            err_t = rel(g, exact)
+            line += f"; err_total (exact NUDFT) {err_t:.3e} (gate < " \
+                    f"{10 * TOL:g})"
+            ok = ok and err_t < 10 * TOL
+        log(line)
+        if not ok:
+            failed.append(label)
+
+    cases = {}
+
+    def timed(label, sharded_fn, unsharded_fn, unsharded="unsharded"):
+        cases[f"sharded {label}"] = sharded_fn
+        cases[f"{unsharded} {label}"] = unsharded_fn
+        log(f"time sharded {label}: "
+            f"{cuda_ms(sharded_fn, reps=SH_REPS, warmup=2):.4f} ms, "
+            f"{unsharded} {cuda_ms(unsharded_fn, reps=SH_REPS, warmup=2):.4f}"
+            f" ms (CUDA-event medians of {SH_REPS}; {smi})")
+
+    coil_images = mri.pmul(maps, image[None])           # [C, n, n, 2]
+    ksp_exact = exact_a(coil_images)                    # [C, M]
+
+    # 1. sharded_nufft type-2 and the gradient of its loss in the image.
+    ksp = sharded_call("nufft type-2", lambda: sharded_nufft(
+        coil_images, x, mesh, tol=TOL), {
+            interp.interp_unplanned_cuda: blocks})
+    ksp_u = planar.nufft(coil_images, x, tol=TOL)
+    gate("nufft type-2", ksp, ksp_u, ksp_exact[:, idx], idx)
+
+    def loss_grad(fn):
+        img = image.clone().requires_grad_()
+        pred = fn(mri.pmul(maps, img[None]))
+        (pred * pred).sum().backward()
+        return img.grad
+    grad = sharded_call("nufft type-2 loss gradient", lambda: loss_grad(
+        lambda ci: sharded_nufft(ci, x, mesh, tol=TOL)), {
+            interp.interp_unplanned_cuda: blocks,
+            spread.spread_unplanned_cuda: blocks})
+    grad_u = loss_grad(lambda ci: planar.nufft(ci, x, tol=TOL))
+    grad_exact = image_grad(2 * exact_ah(ksp_exact))
+    gate("nufft type-2 loss gradient", grad, grad_u)
+    err = rel(grad, grad_exact)
+    log(f"sharded nufft type-2 loss gradient: err_total (exact NUDFTs) "
+        f"{err:.3e} (gate < {10 * TOL:g})")
+    if not err < 10 * TOL:
+        failed.append("nufft type-2 loss gradient (exact)")
+    timed("nufft type-2", lambda: sharded_nufft(coil_images, x, mesh,
+                                                tol=TOL),
+          lambda: planar.nufft(coil_images, x, tol=TOL))
+
+    # 2. Type-1 of the measured k-space, sharded over data and points,
+    # and over the mode grid's leading axis (the points axis of the mesh).
+    modes_exact = exact_ah(cplx(ksp_u))                  # [C, n, n]
+    kw1 = dict(grid_shape=CG_GRID, transform_type="type_1",
+               fft_direction="backward", tol=TOL)
+    t1 = sharded_call("nufft type-1", lambda: sharded_nufft(
+        ksp_u, x, mesh, **kw1), {spread.spread_unplanned_cuda: blocks})
+    t1_u = planar.nufft(ksp_u, x, **kw1)
+    gate("nufft type-1", t1, t1_u, modes_exact)
+    timed("nufft type-1", lambda: sharded_nufft(ksp_u, x, mesh, **kw1),
+          lambda: planar.nufft(ksp_u, x, **kw1))
+    g1 = sharded_call("nufft_grid type-1", lambda: sharded_nufft_grid(
+        ksp_u, x, mesh, grid_axis="points", **kw1),
+        {spread.spread_unplanned_cuda: slabs})
+    gate("nufft_grid type-1", g1, t1_u, modes_exact)
+    g2 = sharded_call("nufft_grid type-2", lambda: sharded_nufft_grid(
+        coil_images, x, mesh, grid_axis="points", tol=TOL),
+        {interp.interp_unplanned_cuda: slabs})
+    gate("nufft_grid type-2", g2, ksp_u, ksp_exact[:, idx], idx)
+    timed("nufft_grid type-1", lambda: sharded_nufft_grid(
+        ksp_u, x, mesh, grid_axis="points", **kw1),
+        lambda: planar.nufft(ksp_u, x, **kw1))
+    timed("nufft_grid type-2", lambda: sharded_nufft_grid(
+        coil_images, x, mesh, grid_axis="points", tol=TOL),
+        lambda: planar.nufft(coil_images, x, tol=TOL))
+
+    # 3. ShardedPlannedNufft: apply, normal, the planned loss gradient.
+    op = ShardedPlannedNufft(x, CG_GRID, mesh, tol=TOL)
+    ref = planar.PlannedNufft(x, CG_GRID, tol=TOL)
+    log(f"sharded planned 2D: level {op.level}, shard levels "
+        f"{[sh.level for sh in op._shards]}, slots {op.num_slots}; "
+        f"unsharded level {ref.level}")
+    if op.level != "mats" or ref.level != "mats":
+        raise RuntimeError("sharded planned 2D: not at the mats level")
+    kp = sharded_call("planned type-2", lambda: op(coil_images), {
+        interp.interp_planned_cuda: blocks})
+    kp_u = ref(coil_images)
+    gate("planned type-2", kp, kp_u, ksp_exact[:, idx], idx)
+    sw = op.slot_weights(torch.ones(m, device=dev))
+    nrm = sharded_call("planned normal", lambda: op.normal(
+        coil_images, sw), {interp.interp_planned_cuda: blocks,
+                           spread.spread_planned_cuda: blocks})
+    normal_exact = exact_ah(ksp_exact)
+    gate("planned normal", nrm, ref.normal(
+        coil_images, ref.slot_weights(torch.ones(m, device=dev))),
+        normal_exact)
+
+    def planned_grad(fwd, normal):
+        img = image.clone().requires_grad_()
+        ci = mri.pmul(maps, img[None])
+        pred, out = fwd(ci), normal(ci)
+        ((pred * pred).sum() + (out * out).sum()).backward()
+        return img.grad
+    pg = sharded_call("planned loss gradient", lambda: planned_grad(
+        op, lambda ci: op.normal(ci, sw)), {
+            interp.interp_planned_cuda: 3 * blocks,
+            spread.spread_planned_cuda: 3 * blocks})
+    sw_u = ref.slot_weights(torch.ones(m, device=dev))
+    pg_u = planned_grad(ref, lambda ci: ref.normal(ci, sw_u))
+    gate("planned loss gradient", pg, pg_u)
+    pg_exact = image_grad(2 * normal_exact + 2 * exact_ah(exact_a(
+        torch.view_as_real(normal_exact))))
+    err = rel(pg, pg_exact)
+    log(f"sharded planned loss gradient: err_total (exact NUDFTs) "
+        f"{err:.3e} (gate < {10 * TOL:g})")
+    if not err < 10 * TOL:
+        failed.append("planned loss gradient (exact)")
+    timed("planned type-2", lambda: op(coil_images),
+          lambda: ref(coil_images))
+    timed("planned normal", lambda: op.normal(coil_images, sw),
+          lambda: ref.normal(coil_images, sw_u))
+
+    # 4. The slot surface: to_slots/from_slots are gathers (no kernel);
+    # the dry run's slot-order data-consistency loss and its gradient.
+    t1_op = op.adjoint()
+    y_slots = op.to_slots(0.5 * kp)
+    same = torch.equal(op.from_slots(y_slots), 0.5 * kp)
+    log(f"sharded from_slots(to_slots(y)) equals y bit for bit: {same}")
+    if not same:
+        failed.append("slot round trip")
+
+    def slots_grad(t2, t1o, ys):
+        img = image.clone().requires_grad_()
+        r = t2.apply_to_slots(mri.pmul(maps, img[None])) - ys
+        back = t1o.apply_from_slots(r)
+        (back * back).sum().backward()
+        return back.detach(), img.grad
+    back, sg = sharded_call("slot loss gradient", lambda: slots_grad(
+        op, t1_op, y_slots), {interp.interp_planned_cuda: 2 * blocks,
+                              spread.spread_planned_cuda: 2 * blocks})
+    back_u, sg_u = slots_grad(ref, ref.adjoint(), ref.to_slots(0.5 * kp_u))
+    back_exact = exact_ah(0.5 * ksp_exact)
+    gate("slot apply_to/from_slots", back, back_u, back_exact)
+    gate("slot loss gradient", sg, sg_u)
+    del back, back_u, sg, sg_u, grad, grad_u, pg, pg_u
+
+    # 5. sharded_nufft_type3 at 2d_t3_200k_200k (default_rng(7)), batch 2.
+    name, rank, m3, t_range, _ = T3_CELLS[0]
+    xs, ts, z = type3_inputs(rank, m3, t_range)
+    xt, tt = torch.from_numpy(xs).to(dev), torch.from_numpy(ts).to(dev)
+    c2 = np.random.default_rng(SEED + 21).standard_normal((m3, 2)).astype(
+        np.float32)
+    src3 = torch.stack([torch.view_as_real(torch.from_numpy(z)),
+                        torch.from_numpy(c2)]).to(dev)          # [2, M, 2]
+    t3 = sharded_call(f"type3 {name}", lambda: sharded_nufft_type3(
+        src3, xt, tt, mesh, tol=TOL), {
+            spread.spread_unplanned_cuda: blocks,
+            interp.interp_unplanned_cuda: blocks})
+    op3 = planar.Type3Plan(xt, tt, tol=TOL)
+    t3_u = op3(src3)
+    gate(f"type3 {name}", t3, t3_u)
+    sub3 = np.random.default_rng(SEED + 15 + rank)
+    idx3 = torch.from_numpy(np.sort(sub3.choice(m3, SUBSET,
+                                                replace=False))).to(dev)
+    exact3 = exact_type3_subset(xt, tt, torch.from_numpy(z).to(dev).to(
+        torch.complex128), idx3)
+    plain = torch.view_as_complex(plain_type3(op3, src3[:1])[0].contiguous())
+    floor_total = rel(plain[idx3], exact3)
+    gate_total = max(10 * TOL, 4 * floor_total)
+    err = rel(torch.view_as_complex(t3[0].contiguous())[idx3], exact3)
+    log(f"sharded type3 {name}: err_total ({SUBSET} targets, exact "
+        f"NUDFT) {err:.3e} (gate < {gate_total:.3e}; floor_f32 "
+        f"{floor_total:.3e}; below 10 * tol: {err < 10 * TOL})")
+    if not err < gate_total:
+        failed.append(f"type3 {name} (exact)")
+    # The sharded type-3 is a one-shot transform: it computes the
+    # statics and bins its blocks in every call, as planar.nufft_type3
+    # does; the planned Type3Plan apply beside it.
+    timed(f"type3 {name}", lambda: sharded_nufft_type3(
+        src3, xt, tt, mesh, tol=TOL), lambda: op3(src3), "planned")
+    timed(f"type3 {name} one-shot", lambda: sharded_nufft_type3(
+        src3, xt, tt, mesh, tol=TOL), lambda: planar.nufft_type3(
+            src3, xt, tt, tol=TOL))
+    del t3, t3_u, plain
+    torch.cuda.empty_cache()
+
+    # 6. Rank 3: the 3D headline planned on 2 points shards.
+    points3, z3, modes3 = inputs3d()
+    mesh3 = Mesh([str(dev)] * 2, ("points",))
+    p3 = torch.from_numpy(points3).to(dev)
+    s3 = torch.view_as_real(torch.from_numpy(z3)).to(dev)[None]
+    f3 = torch.view_as_real(torch.from_numpy(modes3)).to(dev)[None]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    op3d = ShardedPlannedNufft(p3, GRID3, mesh3, transform_type="type_1",
+                               tol=TOL)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - start) * 1e3
+    shards = [(sh.level, sh.band_info.band if sh.band_info else None)
+              for sh in op3d._shards]
+    log(f"sharded 3D: {len(shards)} shards of {NUM_POINTS3 // 2} points, "
+        f"(level, band) {shards}, uniform band {op3d._band}, geometry "
+        f"tiles {op3d.geom.tiles} ext {op3d.geom.ext}; build "
+        f"{build_ms:.1f} ms")
+    if op3d.level != "binned" or op3d._band is None:
+        log("sharded 3D: the shards did NOT take the banded binned level")
+    banded = op3d._band is not None
+    adj3d = op3d.adjoint()
+    want1 = {(spread.spread_banded_cuda if banded
+              else spread.spread_unplanned_cuda): 2,
+             mode3d.fold3d_cuda: 2, fft3d.fine_to_modes_cuda: 6}
+    want2 = {(interp.interp_banded_cuda if banded
+              else interp.interp_unplanned_cuda): 2,
+             mode3d.extend_tiles3d_cuda: 2, fft3d.modes_to_fine_cuda: 6}
+    if op3d.level == "mats":
+        want1 = {spread.spread_planned_cuda: 2, mode3d.fold3d_cuda: 2,
+                 fft3d.fine_to_modes_cuda: 6}
+        want2 = {interp.interp_planned_cuda: 2,
+                 mode3d.extend_tiles3d_cuda: 2, fft3d.modes_to_fine_cuda: 6}
+    o1 = sharded_call("3D planned type-1", lambda: op3d(s3), want1)
+    o2 = sharded_call("3D planned type-2 (adjoint)", lambda: adj3d(f3),
+                      want2)
+    ref3 = planar.PlannedNufft(p3, GRID3, transform_type="type_1", tol=TOL)
+    r1, r2 = ref3(s3), ref3.adjoint()(f3)
+    sub = np.random.default_rng(SEED + 1)
+    idx1 = torch.from_numpy(np.sort(sub.choice(
+        int(np.prod(GRID3)), SUBSET, replace=False))).to(dev)
+    idx2 = torch.from_numpy(np.sort(sub.choice(
+        NUM_POINTS3, SUBSET, replace=False))).to(dev)
+    for label, got, want, exact, sel in (
+            ("3D planned type-1", o1, r1,
+             exact_type1_subset(points3, z3, idx1, dev, grid=GRID3), idx1),
+            ("3D planned type-2 (adjoint)", o2, r2,
+             exact_type2_subset(points3, modes3, idx2, 1.0, dev,
+                                grid=GRID3), idx2)):
+        gate(label, got, want)
+        err = rel(cplx(got[0]).reshape(-1)[sel], exact,
+                  scale=float(cplx(want[0]).abs().max()))
+        log(f"sharded {label}: err_total ({SUBSET} subset, exact NUDFT) "
+            f"{err:.3e} (gate < {10 * TOL:g})")
+        if not err < 10 * TOL:
+            failed.append(f"{label} (exact)")
+    timed("3D planned type-1", lambda: op3d(s3), lambda: ref3(s3))
+    timed("3D planned type-2 (adjoint)", lambda: adj3d(f3),
+          lambda: ref3.adjoint()(f3))
+    if failed:
+        raise RuntimeError(f"sharded phase gates failed: {failed}")
+    return cases
+
+
 def profile_phase(label, cases, calls=20):
     """Event median, device busy time and idle share per call of each
     case (label -> zero-argument callable), with its largest device
-    items."""
+    items. The stage spans' device-side ranges (``is_span``) overlap the
+    kernels under them and are not counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3714,7 +4089,7 @@ def profile_phase(label, cases, calls=20):
             torch.cuda.synchronize()
         items = {}
         for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA:
+            if evt.device_type == DeviceType.CUDA and not is_span(evt.name):
                 items[evt.name] = (items.get(evt.name, 0.0)
                                    + evt.time_range.elapsed_us() / calls
                                    / 1e3)
@@ -4010,6 +4385,12 @@ def main():
     phases["2d_slots"] = slots_phase(
         "2d planned surface", op2, modes_p[None], strengths[None],
         torch.linalg.norm(pts, dim=1), "2d_slots")
+    # Before any --profile reading: after many profiler sessions in one
+    # process the profiler drops device records (on the H100, a --profile
+    # run that read every phase first showed this phase's 3D type-3 with
+    # no kernel at all).
+    timed_phase("spans", spans_phase, dev, TRACE_DIR)
+    torch.cuda.empty_cache()
     if "--profile" in sys.argv:
         profile_phase("2d", transform_cases(
             op1, op2, pts, strengths, modes_p, (GRID, GRID), {}))
@@ -4038,7 +4419,10 @@ def main():
         profile_phase("type3", cases)
     del cases
     torch.cuda.empty_cache()
-    timed_phase("spans", spans_phase, dev, TRACE_DIR)
+    cases = timed_phase("sharded", sharded_phase, dev, smi)
+    if "--profile" in sys.argv:
+        profile_phase("sharded", cases)
+    del cases
     torch.cuda.empty_cache()
     points3, z3, modes3 = inputs3d()
     results.update(kernel_phase_3d(points3, dev))

@@ -3,7 +3,9 @@ NUFFTs on complex tensors (``nufft``, ``interp``, ``spread``, ``nudft``)
 and on planar ones (``planar``), type-3 (``nufft_type3``, ``Type3Plan``,
 ``nudft_type3``), the planned ``PlannedNufft`` and its per-trajectory
 stack ``planar.BatchedPlannedNufft``, the Toeplitz-embedded normal
-operator and the MRI models (``models.mri``).
+operator, the MRI models (``models.mri``) and sharding over a device
+mesh (``parallel``: ``Mesh``, ``sharded_nufft``, ``sharded_nufft_grid``,
+``sharded_nufft_type3``, ``ShardedPlannedNufft``).
 
 The spread and interp hot loops, and at 3D the mode stages and their
 FFT, run as hand-written CUDA kernels on float32 CUDA tensors
@@ -32,7 +34,7 @@ Typical usage::
 """
 
 from tensorflow_nufft_tpu_torch.__about__ import __version__
-from tensorflow_nufft_tpu_torch import models, native, planar
+from tensorflow_nufft_tpu_torch import models, native, parallel, planar
 from tensorflow_nufft_tpu_torch.ops.nufft_ops import (
     interp, nudft, nufft, spread)
 from tensorflow_nufft_tpu_torch.ops.type3 import (
@@ -46,6 +48,7 @@ from tensorflow_nufft_tpu_torch.planar import PlannedNufft
 __all__ = [
     "planar",
     "models",
+    "parallel",
     "nufft",
     "nufft_type3",
     "nudft_type3",

@@ -44,6 +44,7 @@ from tensorflow_nufft_tpu_torch.fft.fft_ops import fft_fine
 from tensorflow_nufft_tpu_torch.kernels import dispatch, fft3d, mode3d
 from tensorflow_nufft_tpu_torch.kernels.binning import (
     BandInfo, BinnedPoints, KernelWeights, TileGeometry)
+from tensorflow_nufft_tpu_torch.ops.nufft_ops import _full_precision_matmul
 from tensorflow_nufft_tpu_torch.plan.plan import make_plan
 
 # The planned rank-3 type-1 with a band takes the fused route (the banded
@@ -85,6 +86,39 @@ def amplify_pad_dft_tiled(modes: torch.Tensor, plan, geom: TileGeometry
     fine = mode3d.amplify_pad_plain(modes, plan)
     return mode3d.extend_plain(
         fft3d.fft_plain(fine, _dims(fine), plan.spec.fft_direction), geom)
+
+
+def _mode_twiddles(nf: int, n: int, sign: float, weights: np.ndarray,
+                   truncating: bool) -> tuple:
+    """The port's copy of the JAX package's ``fft.planar_fft.
+    _mode_twiddles``: pruned, weighted DFT matrices that fuse the
+    deconvolution (or amplification) into the DFT of one axis. Mode i
+    (CMCL order, k = i - n//2) lives at fine-grid slot k mod nf. With
+    ``truncating`` (type-1) (C, S) of shape [nf, n], C[l, i] = w[i]
+    cos(2 pi l slot_i / nf) and S[l, i] = sign w[i] sin(...); otherwise
+    the transposed [n, nf] layout. Float64."""
+    k = np.arange(n) - n // 2
+    slots = np.mod(k, nf)
+    ang = (2.0 * np.pi / nf) * np.outer(np.arange(nf), slots)  # [nf, n]
+    c = np.cos(ang) * weights[None, :]
+    s = sign * np.sin(ang) * weights[None, :]
+    if truncating:
+        return c, s
+    return c.T.copy(), s.T.copy()
+
+
+def _contract_planar(xr: torch.Tensor, xi: torch.Tensor, c: torch.Tensor,
+                     s: torch.Tensor, axis: int):
+    """(xr + i xi) contracted along ``axis`` with (c + i s); returns the
+    planar pair with the transformed axis in place (the JAX package's
+    ``_contract_planar``, an XLA ``tensordot`` at HIGHEST precision:
+    full float32 here, TF32 off)."""
+    with _full_precision_matmul():
+        ar = torch.tensordot(xr, c, dims=([axis], [0]))
+        br = torch.tensordot(xr, s, dims=([axis], [0]))
+        ai = torch.tensordot(xi, c, dims=([axis], [0]))
+        bi = torch.tensordot(xi, s, dims=([axis], [0]))
+    return (ar - bi).movedim(-1, axis), (ai + br).movedim(-1, axis)
 
 
 def ext_mode_twiddles(nf: int, n: int, num_tiles: int, tile: int,

@@ -9,6 +9,9 @@ kernels' plain versions (``backend='auto'``) and the torch-op XLA path
 points-range check of ``tests/test_points_range.py``.
 """
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -30,7 +33,8 @@ def test_nufft_matches_jax(rank, transform_type, direction, dtype):
     kw = dict(grid_shape=grid if transform_type == "type_1" else None,
               transform_type=transform_type, fft_direction=direction,
               tol=TOL[dtype])
-    want = np.asarray(tfft.nufft(src, pts, **kw))
+    want = np.asarray(jax.jit(functools.partial(tfft.nufft, **kw))(
+        src, pts))
     for backend in BACKENDS:
         got = tnt.nufft(src, pts, options=opts(backend), device="cpu",
                         **kw)
@@ -44,7 +48,8 @@ def test_nudft_matches_jax(rank, transform_type):
     grid, pts, src = case(rank, M, transform_type, np.complex128, 7)
     kw = dict(grid_shape=grid if transform_type == "type_1" else None,
               transform_type=transform_type, fft_direction="backward")
-    want = np.asarray(tfft.nudft(src, pts, **kw))
+    want = np.asarray(jax.jit(functools.partial(tfft.nudft, **kw))(
+        src, pts))
     assert relerr(tnt.nudft(src, pts, device="cpu", **kw), want) <= 1e-12
 
 
@@ -57,12 +62,14 @@ def test_spread_interp_match_jax(rank, op, dtype):
     pts = rng.uniform(-np.pi, np.pi, (M, rank)).astype(REAL[dtype])
     if op == "interp":
         src = complex_normal(rng, grid, dtype)
-        want = tfft.interp(src, pts, tol=TOL[dtype])
+        want = jax.jit(functools.partial(tfft.interp, tol=TOL[dtype]))(
+            src, pts)
         gots = [tnt.interp(src, pts, tol=TOL[dtype], options=opts(b),
                            device="cpu") for b in BACKENDS]
     else:
         src = complex_normal(rng, (M,), dtype)
-        want = tfft.spread(src, pts, grid, tol=TOL[dtype])
+        want = jax.jit(functools.partial(tfft.spread, grid_shape=grid,
+                                         tol=TOL[dtype]))(src, pts)
         gots = [tnt.spread(src, pts, grid, tol=TOL[dtype], options=opts(b),
                            device="cpu") for b in BACKENDS]
     for backend, got in zip(BACKENDS, gots):

@@ -1206,3 +1206,134 @@ def test_kernels_run_under_their_stage_spans(dev):
                     assert index.span_of(evt) in \
                         chip_smoke.SPAN_STAGES[kernel], evt.name
             assert seen >= 1
+
+
+def _sharded_case(case, dev, monkeypatch):
+    """(sharded call, unsharded call, {wrapper: launches}) of one public
+    function of tnt.parallel on a (2, 2) ("data", "points") mesh (or a
+    (4,) "grid" mesh) repeating the card, at a small size."""
+    from tensorflow_nufft_tpu_torch import parallel
+    rng = np.random.default_rng(50)
+    grid, m, batch = (32, 48), 2000, 4
+    pts = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, 2)).astype(
+        np.float32)).to(dev)
+    images = torch.from_numpy(rng.standard_normal((batch,) + grid + (2,))
+                              .astype(np.float32)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal((batch, m, 2)).astype(
+        np.float32)).to(dev)
+    mesh = parallel.Mesh(np.array([str(dev)] * 4).reshape(2, 2),
+                         ("data", "points"))
+    grid_mesh = parallel.Mesh([str(dev)] * 4, ("grid",))
+    t1 = dict(grid_shape=grid, transform_type="type_1")
+    if case == "nufft_type_2":
+        return (lambda: parallel.sharded_nufft(images, pts, mesh),
+                lambda: tnt.planar.nufft(images, pts),
+                {interp.interp_unplanned_cuda: 4})
+    if case == "nufft_type_1":
+        return (lambda: parallel.sharded_nufft(vals, pts, mesh, **t1),
+                lambda: tnt.planar.nufft(vals, pts, **t1),
+                {spread.spread_unplanned_cuda: 4})
+    if case == "grid_type_1":
+        return (lambda: parallel.sharded_nufft_grid(vals, pts, grid_mesh,
+                                                    **t1),
+                lambda: tnt.planar.nufft(vals, pts, **t1),
+                {spread.spread_unplanned_cuda: 4})
+    if case == "grid_type_2":
+        return (lambda: parallel.sharded_nufft_grid(images, pts, grid_mesh),
+                lambda: tnt.planar.nufft(images, pts),
+                {interp.interp_unplanned_cuda: 4})
+    if case == "type3":
+        t = torch.from_numpy(rng.uniform(-20, 20, (1000, 2)).astype(
+            np.float32)).to(dev)
+        return (lambda: parallel.sharded_nufft_type3(vals, pts, t, mesh),
+                lambda: tnt.planar.Type3Plan(pts, t)(vals),
+                {spread.spread_unplanned_cuda: 4,
+                 interp.interp_unplanned_cuda: 4})
+    if case == "planned_3d_banded":
+        monkeypatch.setattr(binning, "MATS_BYTES_BUDGET", 0)
+        grid3 = (16, 16, 32)
+        p3 = torch.from_numpy(rng.uniform(-np.pi, np.pi, (8000, 3)).astype(
+            np.float32)).to(dev)
+        src = vals.new_tensor(rng.standard_normal((2, 8000, 2)))
+        op = parallel.ShardedPlannedNufft(p3, grid3, mesh,
+                                          transform_type="type_1")
+        assert op.level == "binned" and op._band is not None
+        ref = tnt.planar.PlannedNufft(p3, grid3, transform_type="type_1")
+        return (lambda: op(src), lambda: ref(src),
+                {spread.spread_banded_cuda: 4, mode3d.fold3d_cuda: 4,
+                 fft3d.fine_to_modes_cuda: 12})
+    if case == "planned_mixed_devices":
+        # Data row 1 runs each points block on the other device: its
+        # plans are copies of the shards', every tensor moved there.
+        mixed = parallel.Mesh([[str(dev), "cpu"], ["cpu", str(dev)]],
+                              ("data", "points"))
+        op = parallel.ShardedPlannedNufft(pts, grid, mixed)
+        ref = tnt.planar.PlannedNufft(pts, grid)
+        for plan in op._plans.values():
+            tensors = [v for v in plan.__dict__.values()
+                       if isinstance(v, torch.Tensor)]
+            for field in plan.__dict__.values():
+                if isinstance(field, tuple):
+                    tensors += [v for v in field
+                                if isinstance(v, torch.Tensor)]
+            assert all(t.device == plan.device for t in tensors)
+        assert op._plans[(1, 0)].device.type == "cpu"
+        y = op(images)
+        assert torch.equal(op.from_slots(op.to_slots(y)), y)
+        sw, sw_ref = op.slot_weights(pts[:, 0].abs()), ref.slot_weights(
+            pts[:, 0].abs())
+        adj = op.adjoint()
+        # The CUDA blocks, (0, 0) and (1, 1), launch the kernels.
+        return (lambda: torch.cat([
+                    op(images).flatten(), op.normal(images, sw).flatten(),
+                    adj.apply_from_slots(op.apply_to_slots(images))
+                    .flatten()]),
+                lambda: torch.cat([
+                    ref(images).flatten(),
+                    ref.normal(images, sw_ref).flatten(),
+                    ref.adjoint()(ref(images)).flatten()]),
+                {interp.interp_planned_cuda: 6,
+                 spread.spread_planned_cuda: 4})
+    op = parallel.ShardedPlannedNufft(pts, grid, mesh)
+    ref = tnt.planar.PlannedNufft(pts, grid)
+    assert op.level == ref.level == "mats"
+    if case == "planned_type_2":
+        return (lambda: op(images), lambda: ref(images),
+                {interp.interp_planned_cuda: 4})
+    if case == "planned_type_1":
+        return (lambda: op.adjoint()(vals), lambda: ref.adjoint()(vals),
+                {spread.spread_planned_cuda: 4})
+    if case == "normal":
+        sw, sw_ref = op.slot_weights(pts[:, 0].abs()), ref.slot_weights(
+            pts[:, 0].abs())
+        return (lambda: op.normal(images, sw),
+                lambda: ref.normal(images, sw_ref),
+                {interp.interp_planned_cuda: 4,
+                 spread.spread_planned_cuda: 4})
+    # The slot surface: the conversions round-trip bit for bit; the
+    # slot-order applies compose to the unsharded normal operator.
+    adj = op.adjoint()
+    y = op(images)
+    assert torch.equal(op.from_slots(op.to_slots(y)), y)
+    return (lambda: adj.apply_from_slots(op.apply_to_slots(images)),
+            lambda: ref.adjoint()(ref(images)),
+            {interp.interp_planned_cuda: 4, spread.spread_planned_cuda: 4})
+
+
+@pytest.mark.parametrize("case", (
+    "nufft_type_2", "nufft_type_1", "grid_type_1", "grid_type_2", "type3",
+    "planned_type_2", "planned_type_1", "normal", "slots",
+    "planned_3d_banded", "planned_mixed_devices"))
+def test_sharded_on_cuda_matches_unsharded(dev, monkeypatch, case):
+    """Each public function of tnt.parallel on a mesh of the card four
+    times (and the planned one on a mesh mixing the card and the CPU):
+    within 1e-5 of the peak of the unsharded port call on the same
+    global inputs, every block launching its kernels (the counts are the
+    blocks')."""
+    sharded, unsharded, want = _sharded_case(case, dev, monkeypatch)
+    before = {w: w.launches for w in want}
+    got = sharded()
+    torch.cuda.synchronize()
+    assert {w: w.launches - before[w] for w in want} == want
+    assert got.is_cuda
+    _close(got, unsharded())

@@ -12,6 +12,7 @@ the JAX tests' gate, 1e-3. Geometry: modes (16, 16, 64), fine (32, 32,
 
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -50,9 +51,10 @@ def case(transform_type, direction, dtype):
     result on them (one XLA compile per case, shared by the tests)."""
     pts = _points(M, 1, dtype)
     src = _source(transform_type, M, (), 2, dtype)
-    want = np.asarray(tfft.planar.nufft(
-        src, pts, grid_shape=GRID if transform_type == "type_1" else None,
-        transform_type=transform_type, fft_direction=direction))
+    want = np.asarray(jax.jit(functools.partial(
+        tfft.planar.nufft,
+        grid_shape=GRID if transform_type == "type_1" else None,
+        transform_type=transform_type, fft_direction=direction))(src, pts))
     return pts, src, want
 
 
@@ -197,7 +199,8 @@ def test_nufft_matches_jax_with_a_long_fine_axis(transform_type):
             np.float32)
     kw = dict(grid_shape=grid if transform_type == "type_1" else None,
               transform_type=transform_type)
-    want = np.asarray(tfft.planar.nufft(src, pts, **kw))
+    want = np.asarray(jax.jit(functools.partial(tfft.planar.nufft, **kw))(
+        src, pts))
     got = tnt.planar.nufft(torch.from_numpy(src), torch.from_numpy(pts),
                            **kw)
     assert _relerr(got, want) <= RTOL
