@@ -116,6 +116,29 @@ Phases:
    calls and err_total < 10 * tol against exact NUDFTs; CUDA-event times
    beside the unsharded calls (the cost of single-controller dispatch on
    one card, not scaling).
+5g. bench_suite.py's remaining cells and the ported paths no earlier
+   phase runs ("suite"), each through the entry points a user calls, at
+   bench_suite's sizes and seeds (default_rng(7), tol 1e-6):
+   2d_t1_256_200k and 2d_t{2,1}_256_200k_b16_shared (PlannedNufft,
+   "mats", B2 2 and 32); 3d_t1_128_1m (PlannedNufft type-1, the banded
+   level or its re-plan, printed); 2d_t2_512_radial_b8 and its _slots
+   form (models.mri.radial_trajectory(512, 1024), 8 coils, "binned");
+   trajectory learning on those radial points (x [8, 512, 512, 2] and k
+   learnable); 2d_t1_512_20m_bigm (unplanned planar.nufft, 20,000,000
+   points, 20,523,008 slots, past 2^24); the 3D ToeplitzNormal at the 3D
+   headline (weighted); the float64 route at 3D (complex128 tnt.nufft at
+   tol 1e-6, and at 1e-12 on 100,000 points). Gates: the census rule of
+   phase 7 (floor_gates) against exact NUDFTs on 4096-element subsets
+   (1024 modes at 20M points) and the card's float64 route; the slots
+   form equal to to_slots of the point-order apply within 1e-5 of the
+   peak; the radial points gradient within 1e-4 of a float64 central
+   difference, both gradients held to the float64 plain pipeline and the
+   float64 route's; the float32 Toeplitz apply held to the float64
+   route's and to PlannedNufft.normal under the floor rule, floor_f32
+   being the float32 XLA path's; the float64 calls launch no kernel.
+   Each cell prints its level, geometry, launches, CUDA-event median,
+   peak memory and the card's name and power limit; the cells' launches
+   add to the JSON line's counts.
 6. 3D kernels: at the unbanded 3D geometry, the unplanned spread and
    interp, fold3d and extend_tiles3d against their plain versions on
    the card, with the same 1e-5 bound; the per-slot-window kernels there
@@ -674,6 +697,23 @@ PHASE_KERNELS = {
                  "modes_to_fine_t3", "extend_tiles3d_t3"),
     "type3_3d_unplanned": ("spread_t3_3d", "fold3d_t3", "interp_t3_3d",
                            "modes_to_fine_t3", "extend_tiles3d_t3"),
+    # The suite phase's cells at bench_suite.py's sizes (rows 1, 2, 4, 6,
+    # 7, 10, 11 and the 3D type-1 mode stage). Their counts add to the
+    # JSON's launches of the kernels they run. The 1M-point plan takes the
+    # banded level, or re-plans onto the unbanded geometry where the band
+    # degenerates; the radial plan is "binned" (coords, the unbanded
+    # kernels); the Toeplitz build spreads onto 256^3 (sigma 1.25).
+    "suite_2d_t1_256_200k": ("spread_planned",),
+    "suite_2d_t2_256_200k_b16_shared": ("interp_planned",),
+    "suite_2d_t1_256_200k_b16_shared": ("spread_planned",),
+    "suite_3d_t1_128_1m": ("spread3d_banded", "fold3d", "fine_to_modes"),
+    "suite_3d_t1_128_1m_unbanded": ("spread3d_unplanned", "fold3d",
+                                    "fine_to_modes"),
+    "suite_2d_t2_512_radial_b8": ("interp_unplanned",),
+    "suite_2d_t2_512_radial_b8_slots": ("interp_unplanned",),
+    "suite_radial_grad": ("spread_split", "interp_unplanned"),
+    "suite_2d_t1_512_20m_bigm": ("spread_unplanned",),
+    "suite_toeplitz3d": ("spread3d_unplanned", "fold3d", "fine_to_modes"),
 }
 
 
@@ -720,10 +760,11 @@ def reset_launches():
         fn.launches = 0
 
 
-def read_launches(phase):
+def read_launches(phase, fft_calls=0):
     """Launch counts of the kernels the main-path ``phase`` must run;
     fails if one was launched no time, or if torch.fft ran on a rank-3
-    grid on the card."""
+    grid on the card other than the ``fft_calls`` times the path calls it
+    by design (a stage the JAX package runs in XLA, not in Pallas)."""
     wrap = wrappers()
     launches = {name: wrap[name].launches for name in PHASE_KERNELS[phase]}
     log(f"{phase} main-path launches: {launches}; rank-3 torch.fft calls "
@@ -731,9 +772,10 @@ def read_launches(phase):
     missing = [name for name, n in launches.items() if n < 1]
     if missing:
         raise RuntimeError(f"{phase} main path did not launch {missing}")
-    if _CARD_FFT_PLAIN[0]:
+    if _CARD_FFT_PLAIN[0] != fft_calls:
         raise RuntimeError(f"{phase} main path ran torch.fft on a rank-3 "
-                           f"grid on the card")
+                           f"grid on the card {_CARD_FFT_PLAIN[0]} times, "
+                           f"want {fft_calls}")
     return launches
 
 
@@ -1381,11 +1423,13 @@ def large_kernels(rank, pts, plan, dev, results):
                   plain_reps=2)
 
 
-def floor_gates(label, got, f32, ref, exact, idx=None):
+def floor_gates(label, got, f32, ref, exact, idx=None,
+                ref_name="f64 plain pipeline"):
     """The accuracy gates of a transform whose float32 floor may lie above
     tol. err_total (against the exact NUDFT ``exact``, at the flat
     indices ``idx`` of the output, or everywhere) and err_impl (against
-    the float64 plain pipeline ``ref``), both relative to the peak of
+    the float64 reference ``ref``: the float64 plain pipeline, or
+    ``ref_name``), both relative to the peak of
     ``ref``: below 10 * tol and tol (bench.py's gates) where the float32
     plain pipeline ``f32`` of the same plan reaches them, else below 4x
     that pipeline's own errors (the census rule for a float32 floor above
@@ -1405,8 +1449,8 @@ def floor_gates(label, got, f32, ref, exact, idx=None):
     gate_impl = max(TOL, 4 * floor_f32)
     log(f"{label}: err_total (vs exact NUDFT) {err_total:.3e} (gate < "
         f"{gate_total:.3e}; f32 plain pipeline {total_f32:.3e}; below "
-        f"10 * tol: {err_total < 10 * TOL}); err_impl (vs f64 plain "
-        f"pipeline) {err_impl:.3e} (gate < {gate_impl:.3e}; floor_f32 "
+        f"10 * tol: {err_total < 10 * TOL}); err_impl (vs {ref_name}) "
+        f"{err_impl:.3e} (gate < {gate_impl:.3e}; floor_f32 "
         f"{floor_f32:.3e}; below tol: {err_impl < TOL})")
     return err_total < gate_total and err_impl < gate_impl
 
@@ -2165,16 +2209,20 @@ def plain_loss_grads(source, points, data, transform_type):
     return r, g_source, -per.sum(dim=0).t()           # forward: sign -1
 
 
-def impl_gates(label, grads, source, points, data, transform_type):
+def impl_gates(label, grads, source, points, data, transform_type,
+               route=None):
     """err_impl of the port's gradients against the float64 plain
     pipeline on the card, gated at max(tol, 4 * floor_f32), floor_f32
-    being the float32 plain pipeline's error against it. Returns the
-    float64 gradients."""
+    being the float32 plain pipeline's error against it. With ``route``
+    (the float64 route's source and points gradients), the port's are
+    held to those at the same gates too, and they to the float64 plain
+    pipeline's within 1e-9 of the peak. Returns the float64 gradients."""
     _, *ref = plain_loss_grads(source.double(), points.double(),
                                data.double(), transform_type)
     _, *f32 = plain_loss_grads(source, points, data, transform_type)
     failed = []
-    for what, got, want, low in zip(("source", "points"), grads, ref, f32):
+    for i, (what, got, want, low) in enumerate(zip(("source", "points"),
+                                                   grads, ref, f32)):
         floor = rel(low, want)
         err = rel(got, want)
         gate = max(TOL, 4 * floor)
@@ -2182,6 +2230,13 @@ def impl_gates(label, grads, source, points, data, transform_type):
             f"{err:.3e} (gate < {gate:.3e}; floor_f32 {floor:.3e})")
         if not err < gate:
             failed.append(what)
+        if route is not None:
+            err_route, agree = rel(got, route[i]), rel(route[i], want)
+            log(f"{label} {what} grad: err_impl (vs float64 route) "
+                f"{err_route:.3e} (gate < {gate:.3e}); float64 route vs "
+                f"f64 plain pipeline {agree:.3e} (gate < 1e-9)")
+            if not (err_route < gate and agree < 1e-9):
+                failed.append(f"{what} (float64 route)")
     if failed:
         raise RuntimeError(f"{label}: err_impl gates failed: {failed}")
     return ref
@@ -2410,15 +2465,17 @@ def plain_spread_only(source, points, plan):
     return out * plan.kernel_scale
 
 
-def fd_gate(label, k_grad, points, terms, step=FD_STEP):
+def fd_gate(label, k_grad, points, terms, step=FD_STEP, spread_only=True):
     """The points gradient against a float64 central difference of the
-    plain ops at FD_POINTS seeded points, each alone (a point's gradient
-    depends on no other point), with a difference step of ``step`` rad.
-    terms: (type, source, cotangent, grid) of the summed losses
-    sum(cotangent * op(source[:, j], k_j))."""
+    plain spread-only ops (or, without ``spread_only``, of the plain
+    pipeline of the transform) at FD_POINTS seeded points, each alone (a
+    point's gradient depends on no other point), with a difference step
+    of ``step`` rad. terms: (type, source, cotangent, grid) of the summed
+    losses sum(cotangent * op(source[:, j], k_j))."""
     import torch
     from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
     rank = points.shape[1]
+    op = plain_spread_only if spread_only else plain_pipeline
     js = np.random.default_rng(SEED + 7).choice(points.shape[0], FD_POINTS,
                                                 replace=False)
     worst = 0.0
@@ -2428,7 +2485,7 @@ def fd_gate(label, k_grad, points, terms, step=FD_STEP):
             for ttype, src, ct, grid in terms:
                 plan = make_plan(PlanSpec(ttype, "forward", rank, grid,
                                           "complex128", TOL, 1,
-                                          spread_only=True))
+                                          spread_only=spread_only))
                 s = src.double() if ttype == "type_2" else \
                     src[:, j:j + 1].double()
                 c = ct[:, j:j + 1].double() if ttype == "type_2" else \
@@ -2436,8 +2493,8 @@ def fd_gate(label, k_grad, points, terms, step=FD_STEP):
                 for sign in (1.0, -1.0):
                     kj = points[j:j + 1].double().clone()
                     kj[0, a] += sign * step
-                    fd += sign * float(torch.sum(
-                        c * plain_spread_only(s, kj, plan))) / (2 * step)
+                    fd += sign * float(torch.sum(c * op(s, kj, plan))) \
+                        / (2 * step)
             worst = max(worst, abs(fd - float(k_grad[j, a])))
     scale = float(k_grad.abs().max())
     log(f"{label} k.grad vs f64 central difference at {FD_POINTS} points: "
@@ -4072,6 +4129,465 @@ def sharded_phase(dev, smi):
     return cases
 
 
+# ---------------------------------------------------------------------------
+# The suite phase: bench_suite.py's cells that no earlier phase runs, and
+# the ported paths that no earlier card run checked.
+# ---------------------------------------------------------------------------
+
+SUITE_SEED = 7         # bench_suite.py's default_rng(7) (nufft_case, bigm_case)
+SUITE_POINTS = 200_000
+SUITE_GRID = (256, 256)
+SUITE_BATCH = 16       # 2d_*_256_200k_b16_shared: B2 = 32
+POINTS_1M = 1_000_000  # 3d_t1_128_1m
+RADIAL = (512, 1024)   # spokes x samples of 2d_t2_512_radial_b8: 524,288
+RADIAL_GRID = (512, 512)
+BIGM_POINTS = 20_000_000
+BIGM_GRID = (512, 512)
+BIGM_MODES = 1024      # exact NUDFT modes of the 20M-point cell
+F64_POINTS = 100_000   # the float64 route at tol 1e-12
+
+
+def suite_case(shape, num_points=None, rank=None):
+    """bench_suite.py's nufft_case inputs: default_rng(7) uniform points
+    [num_points, rank] (float32; none drawn without ``num_points``), then
+    complex normal values of ``shape`` (complex64)."""
+    rng = np.random.default_rng(SUITE_SEED)
+    points = None
+    if num_points is not None:
+        points = rng.uniform(-np.pi, np.pi, (num_points, rank)).astype(
+            np.float32)
+    values = (rng.standard_normal(shape)
+              + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    return points, values
+
+
+def describe_geom(g):
+    return (f"fine {g.fine_shape}, tiles {g.tiles} x {g.tile} ext {g.ext}, "
+            f"chunk {g.chunk}, chunks {g.num_chunks}, slots {g.num_slots}")
+
+
+def counted_call(phase, fn, fft_calls=0):
+    """Runs the main-path call ``fn`` once with every count at 0 and no
+    plain version allowed on the card path. Returns (output, launches,
+    peak bytes allocated since the caller's reset_peak_memory_stats)."""
+    import torch
+    reset_launches()
+    with no_plain_calls(phase):
+        out = fn()
+        torch.cuda.synchronize()
+    return (out, read_launches(phase, fft_calls),
+            torch.cuda.max_memory_allocated())
+
+
+def reset_peak():
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def cell_log(cell, smi, what, launches, ms, peak):
+    log(f"suite {cell}: {what}; launches {launches}; event median "
+        f"{ms:.4f} ms; peak memory {peak / 2 ** 30:.3f} GiB; {smi}")
+
+
+def batch_gates(label, got, f32, ref, exacts, idx, failed):
+    """The census rule (floor_gates) on batch elements: got, f32 (the
+    float32 plain pipeline) and ref (the card's float64 route) are
+    complex [B, ...]; each element b of ``exacts`` (b -> its exact NUDFT
+    at the flat output indices ``idx``) gated alone, then err_impl of all
+    B elements at max(tol, 4 * their floor_f32)."""
+    for b, exact in exacts.items():
+        if not floor_gates(f"{label} element {b}", got[b], f32[b], ref[b],
+                           exact, idx, ref_name="float64 route"):
+            failed.append(f"{label} element {b}")
+    err, floor = rel(got.to(ref.dtype), ref), rel(f32.to(ref.dtype), ref)
+    gate = max(TOL, 4 * floor)
+    log(f"{label}: err_impl of all {got.shape[0]} elements (vs float64 "
+        f"route) {err:.3e} (gate < {gate:.3e}; floor_f32 {floor:.3e}; "
+        f"below tol: {err < TOL})")
+    if not err < gate:
+        failed.append(f"{label} err_impl")
+
+
+def suite_2d(dev, smi, failed):
+    """2d_t1_256_200k and the two b16_shared cells: PlannedNufft on
+    bench_suite.py's 200,000 points at 256^2, batch 1 and 16 on one
+    trajectory."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    from tensorflow_nufft_tpu_torch.planar import from_planar, to_planar
+    points, z1 = suite_case((SUITE_POINTS,), SUITE_POINTS, 2)
+    cells = (("2d_t1_256_200k", "type_1", z1[None]),
+             ("2d_t2_256_200k_b16_shared", "type_2",
+              suite_case((SUITE_BATCH,) + SUITE_GRID, SUITE_POINTS, 2)[1]),
+             ("2d_t1_256_200k_b16_shared", "type_1",
+              suite_case((SUITE_BATCH, SUITE_POINTS), SUITE_POINTS, 2)[1]))
+    pts = torch.from_numpy(points).to(dev)
+    x64 = pts.double()
+    sub = np.random.default_rng(SEED + 20)
+    idx = {"type_1": torch.from_numpy(np.sort(sub.choice(
+               int(np.prod(SUITE_GRID)), SUBSET, replace=False))).to(dev),
+           "type_2": torch.from_numpy(np.sort(sub.choice(
+               SUITE_POINTS, SUBSET, replace=False))).to(dev)}
+    ops, launches, cases = {}, {}, {}
+    for cell, ttype, values in cells:
+        phase = f"suite_{cell}"
+        src = to_planar(values).to(dev)
+        reset_peak()
+        if ttype not in ops:        # the b16 type-1 cell reuses the plan
+            ops[ttype] = planar.PlannedNufft(pts, SUITE_GRID,
+                                             transform_type=ttype, tol=TOL)
+        op = ops[ttype]
+        out, launches[phase], peak = counted_call(phase,
+                                                  lambda: op(src))
+        cases[cell] = lambda op=op, src=src: op(src)
+        cell_log(cell, smi, f"level {op.level}, {describe_geom(op.geom)}, "
+                 f"batch {src.shape[0]} (B2 {2 * src.shape[0]})",
+                 launches[phase], cuda_ms(cases[cell]), peak)
+        kw = dict(grid_shape=SUITE_GRID) if ttype == "type_1" else {}
+        ref = from_planar(planar.nufft(src.double(), x64,
+                                       transform_type=ttype, tol=TOL, **kw))
+        f32 = from_planar(plain_pipeline(src, pts, make_plan(PlanSpec(
+            ttype, "forward", 2, SUITE_GRID, "complex64", TOL, 1))))
+        exacts = {}
+        for b in sorted({0, src.shape[0] - 1}):
+            if ttype == "type_1":
+                exacts[b] = exact_type1_subset(points, values[b], idx[ttype],
+                                               dev, grid=SUITE_GRID)
+            else:
+                exacts[b] = exact2d_type2(
+                    torch.from_numpy(values[b][None]).to(dev).to(
+                        torch.complex128), x64[idx[ttype]], -1.0,
+                    n=SUITE_GRID[0])[0]
+        batch_gates(f"suite {cell}", from_planar(out), f32, ref, exacts,
+                    idx[ttype], failed)
+    return launches, cases
+
+
+def suite_3d_1m(dev, smi, failed):
+    """3d_t1_128_1m: PlannedNufft type-1 at 128^3 on 1,000,000 points,
+    the band (or the re-plan onto the unbanded geometry) at 1M points;
+    gated by the census rule (floor_gates) against the float64 route."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    from tensorflow_nufft_tpu_torch.planar import from_planar, to_planar
+    points, z = suite_case((POINTS_1M,), POINTS_1M, 3)
+    pts = torch.from_numpy(points).to(dev)
+    src = to_planar(z[None]).to(dev)
+    reset_peak()
+    op = planar.PlannedNufft(pts, GRID3, transform_type="type_1", tol=TOL)
+    banded = op.band_info is not None
+    phase = "suite_3d_t1_128_1m" + ("" if banded else "_unbanded")
+    out, launches, peak = counted_call(phase, lambda: op(src))
+    form = (f"banded (band {op.band_info.band})" if banded else
+            "re-planned onto the unbanded geometry")
+    cell_log("3d_t1_128_1m", smi, f"level {op.level}, {form}, "
+             f"{describe_geom(op.geom)} (used chunks "
+             f"{int(op.binned.tile_bounds[-1])})", launches,
+             cuda_ms(lambda: op(src)), peak)
+    spec = dict(transform_type="type_1", fft_direction="forward", rank=3,
+                grid_shape=GRID3, tol=TOL, points_range=1)
+    f32 = from_planar(plain_pipeline(src, pts, make_plan(PlanSpec(
+        dtype_name="complex64", **spec)))[0])
+    ref = from_planar(planar.nufft(src.double(), pts.double(),
+                                   grid_shape=GRID3, transform_type="type_1",
+                                   tol=TOL)[0])
+    idx = torch.from_numpy(np.sort(np.random.default_rng(SEED + 21).choice(
+        int(np.prod(GRID3)), SUBSET, replace=False))).to(dev)
+    exact = exact_type1_subset(points, z, idx, dev, grid=GRID3)
+    if not floor_gates("suite 3d_t1_128_1m", from_planar(out[0]), f32, ref,
+                       exact, idx, ref_name="float64 route"):
+        failed.append("3d_t1_128_1m")
+    return {phase: launches}, {"3d_t1_128_1m": lambda: op(src)}
+
+
+def suite_radial(dev, smi, failed):
+    """2d_t2_512_radial_b8 and its _slots form: PlannedNufft type-2 on
+    models.mri.radial_trajectory(512, 1024) at 512^2, 8 coils sharing the
+    points (points clustered at the k-space centre); then trajectory
+    learning on the same points (x [8, 512, 512, 2] and k learnable)."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.models import mri
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    from tensorflow_nufft_tpu_torch.planar import from_planar, to_planar
+    points = mri.radial_trajectory(*RADIAL)
+    m = points.shape[0]
+    _, f = suite_case((TRAIN_BATCH,) + RADIAL_GRID)
+    pts = torch.from_numpy(points).to(dev)
+    x = to_planar(f).to(dev)
+    reset_peak()
+    op = planar.PlannedNufft(pts, RADIAL_GRID, transform_type="type_2",
+                             tol=TOL)
+    launches = {}
+    cell = "2d_t2_512_radial_b8"
+    out, launches[f"suite_{cell}"], peak = counted_call(
+        f"suite_{cell}", lambda: op(x))
+    per_tile = torch.diff(op.binned.tile_bounds.long())
+    cell_log(cell, smi, f"level {op.level}, {describe_geom(op.geom)} (used "
+             f"chunks {int(op.binned.tile_bounds[-1])}; chunks a tile: max "
+             f"{int(per_tile.max())}, median {int(per_tile.median())}), "
+             f"{TRAIN_BATCH} coils", launches[f"suite_{cell}"],
+             cuda_ms(lambda: op(x)), peak)
+    x64 = pts.double()
+    ref = from_planar(planar.nufft(x.double(), x64, tol=TOL))
+    f32 = from_planar(plain_pipeline(x, pts, make_plan(PlanSpec(
+        "type_2", "forward", 2, RADIAL_GRID, "complex64", TOL, 1))))
+    idx = torch.from_numpy(np.sort(np.random.default_rng(SEED + 22).choice(
+        m, SUBSET, replace=False))).to(dev)
+    exacts = {b: exact2d_type2(torch.from_numpy(f[b][None]).to(dev).to(
+                  torch.complex128), x64[idx], -1.0, n=RADIAL_GRID[0])[0]
+              for b in (0, TRAIN_BATCH - 1)}
+    batch_gates(f"suite {cell}", from_planar(out), f32, ref, exacts, idx,
+                failed)
+
+    cell = "2d_t2_512_radial_b8_slots"
+    reset_peak()
+    slots, launches[f"suite_{cell}"], peak = counted_call(
+        f"suite_{cell}", lambda: op.apply_to_slots(x))
+    cell_log(cell, smi, f"level {op.level}, {op.num_slots} slots",
+             launches[f"suite_{cell}"], cuda_ms(lambda: op.apply_to_slots(x)),
+             peak)
+    err = rel(slots, op.to_slots(out))
+    dead = bool(slots[:, op.slot_mask == 0].any())
+    log(f"suite {cell}: vs to_slots of the point-order apply {err:.3e} "
+        f"(gate < {KERNEL_RTOL:g}); dead slots zero: {not dead}")
+    if not err <= KERNEL_RTOL or dead:
+        failed.append(cell)
+    cases = {"2d_t2_512_radial_b8": lambda: op(x),
+             "2d_t2_512_radial_b8_slots": lambda: op.apply_to_slots(x)}
+    del out, slots, ref, f32
+    grad_launches, grad_cases = suite_radial_grad(pts, dev, smi, failed)
+    launches.update(grad_launches)
+    cases.update(grad_cases)
+    return launches, cases
+
+
+def suite_radial_grad(pts, dev, smi, failed):
+    """Trajectory learning on the radial points: loss 0.5 |A(x; k) - y|^2
+    through planar.nufft type-2, x [8, 512, 512, 2] and k learnable, y
+    made with a perturbed trajectory. Gates: the points gradient against
+    a float64 central difference (fd_gate); the source and points
+    gradients against the float64 plain pipeline at the floor rule
+    (impl_gates), and against the card's float64 route's gradients
+    (autograd through planar.nufft on float64 tensors) at the same
+    gates."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    rng = np.random.default_rng(SEED + 23)
+    x0 = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH,) + RADIAL_GRID + (2,)).astype(np.float32)).to(dev)
+    k_true = pts + torch.from_numpy((SHIFT * rng.standard_normal(
+        tuple(pts.shape))).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = planar.nufft(x0, k_true, tol=TOL)
+    x = x0.clone().requires_grad_()
+    k = pts.clone().requires_grad_()
+
+    def step():
+        out = planar.nufft(x, k, tol=TOL)
+        (0.5 * (out - y).square().sum()).backward()
+        return out
+    cell = "radial_grad"
+    reset_peak()
+    out, launches, peak = counted_call(f"suite_{cell}", step)
+    gx, gk = x.grad.detach().clone(), k.grad.detach().clone()
+    cell_log(cell, smi, f"planar.nufft type-2 loss, x {tuple(x.shape)}, "
+             f"k {tuple(k.shape)}; every count: {step_launches()}", launches,
+             cuda_ms(step, reps=STEP_REPS, warmup=1), peak)
+    if not (bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gk).all())):
+        raise RuntimeError("suite radial_grad: non-finite gradients")
+    r = (out - y).detach()
+    fd_gate(f"suite {cell}", gk, pts, (("type_2", x0, r, RADIAL_GRID),),
+            spread_only=False)
+    x64 = x0.double().requires_grad_()
+    k64 = pts.double().requires_grad_()
+    (0.5 * (planar.nufft(x64, k64, tol=TOL) - y.double()).square().sum()
+     ).backward()
+    try:
+        impl_gates(f"suite {cell}", (gx, gk), x0, pts, y, "type_2",
+                   route=(x64.grad, k64.grad))
+    except RuntimeError as err:
+        failed.append(str(err))
+    return {f"suite_{cell}": launches}, {cell: step}
+
+
+def suite_bigm(dev, smi, failed):
+    """2d_t1_512_20m_bigm: unplanned planar.nufft type-1 at 512^2 on
+    20,000,000 points, the slot count past 2^24 (int32 slot offsets in
+    the binning and the spread); err_total on 1024 modes over all points
+    and err_impl against the card's float64 route, by the census rule
+    (floor_gates: the float32 plain pipeline on the card gives the
+    floor)."""
+    import torch
+    from tensorflow_nufft_tpu_torch import planar
+    from tensorflow_nufft_tpu_torch.kernels import binning
+    from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+    from tensorflow_nufft_tpu_torch.planar import from_planar, to_planar
+    cell = "2d_t1_512_20m_bigm"
+    points, z = suite_case((BIGM_POINTS,), BIGM_POINTS, 2)
+    pts = torch.from_numpy(points).to(dev)
+    src = to_planar(z).to(dev)
+    plan = make_plan(PlanSpec("type_1", "forward", 2, BIGM_GRID, "complex64",
+                              TOL, 1))
+    geom = binning.choose_geometry(plan.fine_shape, plan.width, BIGM_POINTS)
+
+    def call():
+        return planar.nufft(src, pts, grid_shape=BIGM_GRID,
+                            transform_type="type_1", tol=TOL)
+    reset_peak()
+    out, launches, peak = counted_call(f"suite_{cell}", call)
+    cell_log(cell, smi, f"unplanned, {describe_geom(geom)}; slots "
+             f"{geom.num_slots} > 2^24 ({2 ** 24}): "
+             f"{geom.num_slots > 2 ** 24}", launches,
+             cuda_ms(call, reps=10, warmup=1), peak)
+    if not geom.num_slots > 2 ** 24:
+        failed.append(f"{cell}: {geom.num_slots} slots, not past 2^24")
+    idx = torch.from_numpy(np.sort(np.random.default_rng(SEED + 24).choice(
+        int(np.prod(BIGM_GRID)), BIGM_MODES, replace=False))).to(dev)
+    exact = exact_type1_subset(points, z, idx, dev, grid=BIGM_GRID)
+    got = from_planar(out)
+    del out
+    ref = from_planar(planar.nufft(src.double(), pts.double(),
+                                   grid_shape=BIGM_GRID,
+                                   transform_type="type_1", tol=TOL))
+    f32 = from_planar(plain_pipeline(src[None], pts, plan)[0])
+    if not floor_gates(f"suite {cell}", got, f32, ref, exact, idx,
+                       ref_name="float64 route"):
+        failed.append(cell)
+    return {f"suite_{cell}": launches}, {cell: call}
+
+
+def suite_toeplitz3d(dev, smi, failed):
+    """planar.ToeplitzNormal at 128^3 on the 3D headline's 800,000 points,
+    weighted, B = 1: the spectrum's type-1 onto 256^3 (sigma 1.25 in
+    float32, ROADMAP fault 3) and the apply. The float32 apply is held to
+    the float64 route's Toeplitz apply and to PlannedNufft.normal with the
+    same weights, under the floor rule: floor_f32 is the float32 XLA
+    path's Toeplitz (Options(backend="xla")) against the float64 one."""
+    import torch
+    from tensorflow_nufft_tpu_torch import Options, planar
+    points3, _, _ = inputs3d()
+    pts = torch.from_numpy(points3).to(dev)
+    rng = np.random.default_rng(SEED + 25)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, NUM_POINTS3).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((1,) + GRID3 + (2,)).astype(
+        np.float32)).to(dev)
+    cell = "toeplitz3d"
+    ops = []
+
+    def build():
+        ops[:] = [planar.ToeplitzNormal(pts, GRID3, weights=w, tol=TOL)]
+        return ops[0](x)
+    reset_peak()
+    # The build's one rank-3 DFT of the spectrum is torch.fft by design
+    # (the JAX package's XLA contraction); the apply calls torch.fft
+    # directly.
+    out, launches, peak = counted_call(f"suite_{cell}", build, fft_calls=1)
+    op = ops[0]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    planar.ToeplitzNormal(pts, GRID3, weights=w, tol=TOL)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - start) * 1e3
+    cell_log(cell, smi, f"spectrum {tuple(op.spectrum.shape)} "
+             f"{op.spectrum.dtype}; build {build_ms:.4f} ms (host clock)",
+             launches, cuda_ms(lambda: op(x)), peak)
+    ref = planar.ToeplitzNormal(pts.double(), GRID3, weights=w.double(),
+                                tol=TOL)(x.double())
+    floor = rel(planar.ToeplitzNormal(pts, GRID3, weights=w, tol=TOL,
+                                      options=Options(backend="xla"))(x), ref)
+    plan = planar.PlannedNufft(pts, GRID3, transform_type="type_2", tol=TOL)
+    normal = plan.normal(x, plan.slot_weights(w))
+    err_ref = rel(out, ref)
+    err_normal = rel(out, normal, float(ref.abs().max()))
+    gate_ref, gate_normal = max(TOL, 4 * floor), max(10 * TOL, 4 * floor)
+    log(f"suite {cell}: float32 apply vs the float64 route's {err_ref:.3e} "
+        f"(gate < {gate_ref:.3e}); vs PlannedNufft.normal ({plan.level}) "
+        f"{err_normal:.3e} (gate < {gate_normal:.3e}); floor_f32 (float32 "
+        f"XLA path vs float64) {floor:.3e}; normal vs the float64 route "
+        f"{rel(normal, ref):.3e}")
+    if not (err_ref < gate_ref and err_normal < gate_normal):
+        failed.append(cell)
+    return {f"suite_{cell}": launches}, {f"{cell}_apply": lambda: op(x)}
+
+
+def suite_float64_3d(dev, smi, failed):
+    """The float64 route in 3D: complex128 tnt.nufft type-1 and type-2 at
+    the 3D headline (tol 1e-6, err_total < 10 * tol on 4096-element
+    subsets) and at tol 1e-12 on its first 100,000 points (< 1e-10); no
+    kernel launches; the time and peak memory of each call (its spread is
+    the index_add_ loop of kernels/xla_ops.py)."""
+    import torch
+    import tensorflow_nufft_tpu_torch as tnt
+    points3, z3, modes3 = inputs3d()
+    sub = np.random.default_rng(SEED + 26)
+    cases = {}
+    for m, tol, gate in ((NUM_POINTS3, TOL, 10 * TOL),
+                         (F64_POINTS, 1e-12, 1e-10)):
+        x64 = torch.from_numpy(points3[:m].astype(np.float64)).to(dev)
+        c = torch.from_numpy(z3[:m].astype(np.complex128)).to(dev)
+        f = torch.from_numpy(modes3.astype(np.complex128)).to(dev)
+        idx1 = torch.from_numpy(np.sort(sub.choice(
+            int(np.prod(GRID3)), SUBSET, replace=False))).to(dev)
+        idx2 = torch.from_numpy(np.sort(sub.choice(m, SUBSET,
+                                                   replace=False))).to(dev)
+        calls = {"type_1": lambda x64=x64, c=c, tol=tol: tnt.nufft(
+                     c, x64, grid_shape=GRID3, transform_type="type_1",
+                     tol=tol),
+                 "type_2": lambda x64=x64, f=f, tol=tol: tnt.nufft(
+                     f, x64, transform_type="type_2", tol=tol)}
+        for ttype, call in calls.items():
+            label = f"float64_3d_{ttype[-1]}_{m}_{tol:g}"
+            reset_peak()
+            reset_launches()
+            out = call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            no_launches(f"suite {label}")
+            if ttype == "type_1":
+                exact = exact_type1_subset(points3[:m], z3[:m], idx1, dev,
+                                           grid=GRID3)
+                err = rel(out.reshape(-1)[idx1], exact)
+            else:
+                exact = exact_type2_subset(points3[:m], modes3, idx2, -1.0,
+                                           dev, grid=GRID3)
+                err = rel(out[idx2], exact)
+            cell_log(label, smi, f"{m} points, tol {tol:g}, {out.dtype}",
+                     {}, cuda_ms(call, reps=3, warmup=1), peak)
+            log(f"suite {label}: err_total (vs exact NUDFT, {SUBSET} "
+                f"elements) {err:.3e} (gate < {gate:g})")
+            if not err < gate:
+                failed.append(label)
+            cases[label] = call
+    return cases
+
+
+def suite_phase(dev, smi):
+    """bench_suite.py's cells and the ported paths that no earlier phase
+    ran on the card, each through the entry points a user calls at its
+    full size: 2d_t1_256_200k, 2d_t{2,1}_256_200k_b16_shared,
+    3d_t1_128_1m, 2d_t2_512_radial_b8 (and _slots), trajectory learning
+    on the radial points, 2d_t1_512_20m_bigm, the 3D ToeplitzNormal and
+    the float64 route in 3D. Each cell prints its level, geometry, launch
+    counts, CUDA-event median, peak memory and the card's name and power
+    limit; a gate it misses fails the phase."""
+    launches, cases, failed = {}, {}, []
+    for cell in (suite_2d, suite_3d_1m, suite_radial, suite_bigm,
+                 suite_toeplitz3d):
+        got, more = cell(dev, smi, failed)
+        launches.update(got)
+        cases.update(more)
+    cases.update(suite_float64_3d(dev, smi, failed))
+    if failed:
+        raise RuntimeError(f"suite phase gates failed: {failed}")
+    return launches, cases
+
+
 def profile_phase(label, cases, calls=20):
     """Event median, device busy time and idle share per call of each
     case (label -> zero-argument callable), with its largest device
@@ -4424,6 +4940,12 @@ def main():
         profile_phase("sharded", cases)
     del cases
     torch.cuda.empty_cache()
+    suite_launches, cases = timed_phase("suite", suite_phase, dev, smi)
+    phases.update(suite_launches)
+    if "--profile" in sys.argv:
+        profile_phase("suite", cases)
+    del cases
+    torch.cuda.empty_cache()
     points3, z3, modes3 = inputs3d()
     results.update(kernel_phase_3d(points3, dev))
     torch.cuda.empty_cache()
@@ -4515,9 +5037,14 @@ def main():
     kernels = []
     for name, (_, source, replaces, phase) in KERNELS.items():
         res = results[name]
+        # Its main-path phase's count, plus those of the suite cells that
+        # run the kernel.
+        launches = phases[phase][name] + sum(
+            counts.get(name, 0) for key, counts in phases.items()
+            if key.startswith("suite_"))
         kernels.append({
             "name": name, "route": "cuda", "source": _CSRC + source,
-            "replaces": replaces, "launches": phases[phase][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],

@@ -7,7 +7,13 @@ FLOAT_DTYPES = (torch.float32, torch.float64)
 COMPLEX_DTYPES = (torch.complex64, torch.complex128)
 
 _REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+_COMPLEX_OF = {v: k for k, v in _REAL_OF.items()}
 _NAMES = {torch.float32: "complex64", torch.float64: "complex128"}
+
+
+def is_complex_dtype(dtype: torch.dtype) -> bool:
+    """Whether ``dtype`` is a complex dtype."""
+    return dtype.is_complex
 
 
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -15,6 +21,15 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
     if dtype in _REAL_OF:
         return _REAL_OF[dtype]
     if dtype in FLOAT_DTYPES:
+        return dtype
+    raise TypeError(f"Expected a complex or float dtype, got {dtype}.")
+
+
+def complex_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Complex dtype of the precision of a float (or complex) dtype."""
+    if dtype in _COMPLEX_OF:
+        return _COMPLEX_OF[dtype]
+    if dtype in COMPLEX_DTYPES:
         return dtype
     raise TypeError(f"Expected a complex or float dtype, got {dtype}.")
 
