@@ -4591,10 +4591,9 @@ def suite_phase(dev, smi):
 def profile_phase(label, cases, calls=20):
     """Event median, device busy time and idle share per call of each
     case (label -> zero-argument callable), with its largest device
-    items. The stage spans' device-side ranges (``is_span``) overlap the
-    kernels under them and are not counted."""
+    items. The spans' device-side ranges overlap the kernels under them
+    and are not counted (``device_work``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for name, fn in cases.items():
         event_ms = cuda_ms(fn)
@@ -4604,11 +4603,9 @@ def profile_phase(label, cases, calls=20):
                 fn()
             torch.cuda.synchronize()
         items = {}
-        for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA and not is_span(evt.name):
-                items[evt.name] = (items.get(evt.name, 0.0)
-                                   + evt.time_range.elapsed_us() / calls
-                                   / 1e3)
+        for evt in device_work(prof.events()):
+            items[evt.name] = (items.get(evt.name, 0.0)
+                               + evt.time_range.elapsed_us() / calls / 1e3)
         busy = sum(items.values())
         top = sorted(items.items(), key=lambda kv: -kv[1])[:4]
         log(f"profile {label} {name}: event median {event_ms:.4f} ms, "
@@ -4747,6 +4744,18 @@ def is_span(name):
     return name.startswith(("nufft.", "nufft3."))
 
 
+def device_work(events):
+    """The device activity of a profile without the spans' own ranges on
+    the device timeline: any CUDA event that is a user annotation or
+    bears the name of one on the host (every ``utils.profiling.scope``
+    span, stage or not)."""
+    from torch.autograd import DeviceType
+    marks = {e.name for e in events
+             if e.device_type == DeviceType.CPU and e.is_user_annotation}
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation and e.name not in marks]
+
+
 class SpanIndex:
     """The stage span of each device activity of a profile: the nearest
     ``nufft.*``/``nufft3.*`` span enclosing, on the host timeline, the
@@ -4761,7 +4770,7 @@ class SpanIndex:
         self.launches = {e.id: e for e in cpu
                          if getattr(e, "linked_correlation_id", 0)
                          or e.name.startswith(("cuda", "cu"))}
-        self.device = [e for e in events if e.device_type == DeviceType.CUDA]
+        self.device = device_work(events)
 
     def span_of(self, evt):
         launch = self.launches.get(evt.id)
@@ -4846,8 +4855,6 @@ def spans_phase(dev, logdir):
         missing = [n for n in expect if n not in names]
         per_span, launches, outside = {}, {}, []
         for evt in index.device:
-            if is_span(evt.name):
-                continue        # a span's own device-timeline annotation
             span = index.span_of(evt)
             ms = evt.time_range.elapsed_us() / 1e3
             per_span[span or "(none)"] = per_span.get(span or "(none)",

@@ -46,6 +46,7 @@ from tensorflow_nufft_tpu_torch.kernels.binning import (
     BandInfo, BinnedPoints, KernelWeights, TileGeometry)
 from tensorflow_nufft_tpu_torch.ops.nufft_ops import _full_precision_matmul
 from tensorflow_nufft_tpu_torch.plan.plan import make_plan
+from tensorflow_nufft_tpu_torch.utils import profiling as prof
 
 # The planned rank-3 type-1 with a band takes the fused route (the banded
 # spread with the axis-2 DFT epilogue, then a two-axis mode stage) when
@@ -188,16 +189,21 @@ def spread_dft_fused(values_pl: torch.Tensor, binned: BinnedPoints,
     """Planned type-1 from slot-order values [2*batch, num_slots] (zero
     in padded slots) -> modes [batch, *grid_shape, 2]: the fused route
     where ``fused_route`` says so, else the spread and the staged mode
-    stage."""
+    stage. Either route runs its two steps under the ``nufft.spread`` and
+    ``nufft.mode_dft_deconvolve`` spans."""
     if fused_route(geom, band):
-        y = dispatch.spread_dfta(values_pl, binned, geom, plan, coords,
-                                 band, dfta_twiddles(plan, geom,
-                                                     values_pl.device))
-        return dft_truncate_deconvolve_fused(y, plan, geom, batch)
-    tiles = dispatch.spread_tiled(None, binned, geom, plan, kw=kw,
-                                  coords=coords, band=band,
-                                  values_slots=values_pl)
-    return dft_truncate_deconvolve_tiled(tiles, plan, geom, batch)
+        with prof.scope("nufft.spread"):
+            y = dispatch.spread_dfta(values_pl, binned, geom, plan, coords,
+                                     band, dfta_twiddles(plan, geom,
+                                                         values_pl.device))
+        with prof.scope("nufft.mode_dft_deconvolve"):
+            return dft_truncate_deconvolve_fused(y, plan, geom, batch)
+    with prof.scope("nufft.spread"):
+        tiles = dispatch.spread_tiled(None, binned, geom, plan, kw=kw,
+                                      coords=coords, band=band,
+                                      values_slots=values_pl)
+    with prof.scope("nufft.mode_dft_deconvolve"):
+        return dft_truncate_deconvolve_tiled(tiles, plan, geom, batch)
 
 
 def _complex(x: torch.Tensor) -> torch.Tensor:

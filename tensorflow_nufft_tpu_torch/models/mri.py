@@ -25,6 +25,7 @@ from tensorflow_nufft_tpu_torch.kernels.torch_ops import (
     fold_and_rescale_split)
 from tensorflow_nufft_tpu_torch.options.options import Options
 from tensorflow_nufft_tpu_torch.plan.plan import PlanSpec, make_plan
+from tensorflow_nufft_tpu_torch.utils import profiling as prof
 from tensorflow_nufft_tpu_torch.utils.dtypes import (
     as_tensor, dtype_name, entry_tensors)
 from tensorflow_nufft_tpu_torch.utils.smooth import next_smooth_integer
@@ -160,6 +161,8 @@ class SenseNufft:
     its applies run the unplanned transform, and ``normal`` the composed
     pair. With ``toeplitz=True``, ``normal`` is a
     ``planar.ToeplitzNormal``: no spread or interp per CG iteration.
+    ``forward``, ``adjoint`` and ``normal`` run under the ``mri.forward``,
+    ``mri.adjoint`` and ``mri.normal`` spans (``utils.profiling``).
     """
 
     def __init__(self, points, maps, grid_shape: Tuple[int, ...],
@@ -190,44 +193,48 @@ class SenseNufft:
 
     def forward(self, image) -> torch.Tensor:
         """[*grid, 2] -> [C, M, 2]."""
-        coil_images = pmul(self.maps, as_tensor(
-            image, device=self.points.device)[None])
-        if self._t2 is not None:
-            return self._t2(coil_images)
-        return planar.nufft(coil_images, self.points,
-                            transform_type="type_2",
-                            fft_direction="forward", tol=self.tol,
-                            options=self.options)
+        with prof.scope("mri.forward"):
+            coil_images = pmul(self.maps, as_tensor(
+                image, device=self.points.device)[None])
+            if self._t2 is not None:
+                return self._t2(coil_images)
+            return planar.nufft(coil_images, self.points,
+                                transform_type="type_2",
+                                fft_direction="forward", tol=self.tol,
+                                options=self.options)
 
     def adjoint(self, kspace) -> torch.Tensor:
         """[C, M, 2] -> [*grid, 2] (density-compensated A^H)."""
-        kspace = as_tensor(kspace, device=self.points.device)
-        if self.density is not None:
-            kspace = kspace * self.density[None, :, None]
-        if self._t2 is not None:
-            coil_images = self._t2.adjoint()(kspace)
-        else:
-            coil_images = planar.nufft(kspace, self.points,
-                                       grid_shape=self.grid_shape,
-                                       transform_type="type_1",
-                                       fft_direction="backward",
-                                       tol=self.tol, options=self.options)
-        return torch.sum(pmul(pconj(self.maps), coil_images), dim=0)
+        with prof.scope("mri.adjoint"):
+            kspace = as_tensor(kspace, device=self.points.device)
+            if self.density is not None:
+                kspace = kspace * self.density[None, :, None]
+            if self._t2 is not None:
+                coil_images = self._t2.adjoint()(kspace)
+            else:
+                coil_images = planar.nufft(kspace, self.points,
+                                           grid_shape=self.grid_shape,
+                                           transform_type="type_1",
+                                           fft_direction="backward",
+                                           tol=self.tol,
+                                           options=self.options)
+            return torch.sum(pmul(pconj(self.maps), coil_images), dim=0)
 
     def normal(self, image) -> torch.Tensor:
         """A^H W A applied to an image (the CG system operator): the
         Toeplitz embedding with ``toeplitz=True``; the plan's ``normal``
         (point values kept in slot order) where the plan has a level;
         else the composed pair."""
-        image = as_tensor(image, device=self.points.device)
-        if self._toeplitz is not None:
-            coil_normal = self._toeplitz(pmul(self.maps, image[None]))
+        with prof.scope("mri.normal"):
+            image = as_tensor(image, device=self.points.device)
+            if self._toeplitz is not None:
+                coil_normal = self._toeplitz(pmul(self.maps, image[None]))
+            elif self._t2 is not None and self._t2.level != "none":
+                coil_normal = self._t2.normal(pmul(self.maps, image[None]),
+                                              self._slot_density)
+            else:
+                return self.adjoint(self.forward(image))
             return torch.sum(pmul(pconj(self.maps), coil_normal), dim=0)
-        if self._t2 is not None and self._t2.level != "none":
-            coil_normal = self._t2.normal(pmul(self.maps, image[None]),
-                                          self._slot_density)
-            return torch.sum(pmul(pconj(self.maps), coil_normal), dim=0)
-        return self.adjoint(self.forward(image))
 
 
 def _pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -240,7 +247,9 @@ def cg_sense(kspace, op: SenseNufft, num_iters: int = 10,
     """CG-SENSE reconstruction: solves (A^H W A + lamda I) x = A^H W y,
     W = diag(op.density) (identity without one), by ``num_iters``
     conjugate-gradient iterations from x = 0. A Python loop of torch
-    ops, differentiable through autograd.
+    ops, differentiable through autograd; each iteration runs under the
+    ``cg.iter`` span (``utils.profiling``), the operator's applies under
+    ``SenseNufft``'s ``mri.*`` spans.
 
     Args:
         kspace: [C, M, 2] measured data.
@@ -263,14 +272,15 @@ def cg_sense(kspace, op: SenseNufft, num_iters: int = 10,
     r = p = rhs
     rs = _pdot(r, r)
     for _ in range(num_iters):
-        ap = system(p)
-        alpha = rs / torch.clamp(_pdot(p, ap), min=1e-30)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = _pdot(r, r)
-        beta = rs_new / torch.clamp(rs, min=1e-30)
-        p = r + beta * p
-        rs = rs_new
+        with prof.scope("cg.iter"):
+            ap = system(p)
+            alpha = rs / torch.clamp(_pdot(p, ap), min=1e-30)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rs_new = _pdot(r, r)
+            beta = rs_new / torch.clamp(rs, min=1e-30)
+            p = r + beta * p
+            rs = rs_new
     return x
 
 

@@ -30,7 +30,9 @@ Each stage runs in a ``utils.profiling.scope`` span of its JAX name:
 ``nufft.amplify_dft`` and ``nufft.interp`` on the tiled route (the JAX
 planar core's), ``nufft.fft``, ``nufft.deconvolve`` and
 ``nufft.amplify`` in their place on the XLA path and the native engine
-(the JAX complex core's).
+(the JAX complex core's). The binning of ``bin_for_plan`` runs under
+``prep.bin``, inside ``nufft.fold_rescale`` on a transform's path: the
+port's own name, not a JAX scope.
 """
 
 from __future__ import annotations
@@ -72,7 +74,8 @@ def bin_for_plan(points: torch.Tensor, plan,
                  zorder: bool = False):
     """Points-side preprocessing: two-float fold, tile geometry (the
     unbanded ``choose_geometry`` unless ``geom`` is given) and binning
-    (z-ordered with ``zorder``). Returns (geom, binned)."""
+    (z-ordered with ``zorder``), the binning under the ``prep.bin`` span.
+    Returns (geom, binned)."""
     if geom is None:
         geom = binning.choose_geometry(plan.fine_shape, plan.width,
                                        int(points.shape[0]))
@@ -82,7 +85,8 @@ def bin_for_plan(points: torch.Tensor, plan,
             f"than twice the halo {geom.pad}")
     points_resc = fold_and_rescale_split(points, plan.fine_shape,
                                          plan.spec.points_range)
-    return geom, binning.bin_points(points_resc, geom, zorder=zorder)
+    with prof.scope("prep.bin"):
+        return geom, binning.bin_points(points_resc, geom, zorder=zorder)
 
 
 def _execute_planar(source: torch.Tensor, points: torch.Tensor,

@@ -292,6 +292,13 @@ class PlannedNufft:
     Differentiable in the source (and slot values); the points are plan
     data and may not require grad.
 
+    Spans (``utils.profiling.scope``; the JAX planned path has none): a
+    type-1 apply runs under ``plan.apply``, ``normal`` under
+    ``plan.normal`` and the slot applies under ``plan.slots``, their
+    stages under the unplanned path's stage names (``nufft.spread``,
+    ``nufft.mode_dft_deconvolve``, ``nufft.amplify_dft``,
+    ``nufft.interp``). A lone type-2 apply opens no span.
+
     Args:
         points: [M, rank] float32/float64 tensor or array.
         grid_shape: the mode grid (type-1 output, type-2 input).
@@ -471,6 +478,14 @@ class PlannedNufft:
                                      band=self.band_info,
                                      chunk_order=chunk_order)
 
+    def _type2_slots(self, source: torch.Tensor) -> torch.Tensor:
+        """Modes [B, *grid, 2] -> slot-order values [2B, num_slots], each
+        stage under its span."""
+        with prof.scope("nufft.amplify_dft"):
+            tiles = amplify_pad_dft_tiled(source, self.plan, self.geom)
+        with prof.scope("nufft.interp"):
+            return self._interp(tiles, chunk_order=True)
+
     def _unplanned(self, source: torch.Tensor) -> torch.Tensor:
         """Level "none": the unplanned transform."""
         return nufft(source, self.points,
@@ -484,10 +499,15 @@ class PlannedNufft:
         batch = source.shape[0]
         m = self.points.shape[0]
         if self.transform_type == "type_1":
-            # Channel-major fold: [B, M, 2] -> [2B, M] (row order (b, ch)).
-            src_cm = source.movedim(-1, 1).reshape(2 * batch, m)
-            return self._type1(
-                binning.build_values_payload(src_cm, self.binned), batch)
+            with prof.scope("plan.apply"):
+                # Channel-major fold: [B, M, 2] -> [2B, M] (row order
+                # (b, ch)).
+                src_cm = source.movedim(-1, 1).reshape(2 * batch, m)
+                return self._type1(
+                    binning.build_values_payload(src_cm, self.binned), batch)
+        # No span: under torch.profiler the host work of a lone planned
+        # type-2 is about its device time (3D, 800k points, H100), so spans
+        # here would make its traced idle share read their cost.
         tiles = amplify_pad_dft_tiled(source, self.plan, self.geom)
         values = self._interp(tiles, chunk_order=False)
         return values.reshape(batch, 2, m).movedim(1, -1)
@@ -641,23 +661,24 @@ class PlannedNufft:
         return _PlannedSlots.apply(slot_values, self)
 
     def _apply_slots(self, source: torch.Tensor) -> torch.Tensor:
-        batch = source.shape[0]
-        keep = self.binned.invpos < self.points.shape[0]
-        if self.transform_type == "type_1":
-            src_cm = source.movedim(-1, 1).reshape(2 * batch, -1)
-            return self._type1(torch.where(keep[None], src_cm, 0.0), batch)
-        tiles = amplify_pad_dft_tiled(source, self.plan, self.geom)
-        flat = torch.where(keep[None], self._interp(tiles, True), 0.0)
-        return flat.reshape(batch, 2, -1).movedim(1, -1)
+        with prof.scope("plan.slots"):
+            batch = source.shape[0]
+            keep = self.binned.invpos < self.points.shape[0]
+            if self.transform_type == "type_1":
+                src_cm = source.movedim(-1, 1).reshape(2 * batch, -1)
+                return self._type1(torch.where(keep[None], src_cm, 0.0),
+                                   batch)
+            flat = torch.where(keep[None], self._type2_slots(source), 0.0)
+            return flat.reshape(batch, 2, -1).movedim(1, -1)
 
     def _apply_normal(self, source: torch.Tensor,
                       slot_w: Optional[torch.Tensor]) -> torch.Tensor:
         """A^H W A on a type-2 plan (``self``)."""
-        tiles = amplify_pad_dft_tiled(source, self.plan, self.geom)
-        flat = self._interp(tiles, chunk_order=True)      # [2B, S]
-        if slot_w is not None:
-            flat = flat * slot_w[None]
-        return self.adjoint()._type1(flat, source.shape[0])
+        with prof.scope("plan.normal"):
+            flat = self._type2_slots(source)                   # [2B, S]
+            if slot_w is not None:
+                flat = flat * slot_w[None]
+            return self.adjoint()._type1(flat, source.shape[0])
 
     def _to_slots(self, values: torch.Tensor) -> torch.Tensor:
         batch = values.shape[0]

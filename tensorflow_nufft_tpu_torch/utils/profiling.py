@@ -2,7 +2,7 @@
 
 The port's counterpart of the JAX package's ``utils/profiling.py``:
 
-- **Stage spans** (``scope``): every stage of a transform (fold/rescale,
+- **Spans** (``scope``): every stage of a transform (fold/rescale,
   spread, the mode stage, interp; type-3's outer spread and inner
   type-2) runs inside a ``torch.profiler.record_function`` of its JAX
   name, so ``torch.profiler`` traces show each stage as a span with the
@@ -10,14 +10,19 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
   ``torch.autograd.profiler.emit_nvtx()`` the same spans become NVTX
   ranges. Without an active profiler a span opens no
   ``record_function`` (which costs about 10 microseconds of host time)
-  and costs one check of the profiler state.
+  and costs one check of the profiler state. The layers above the
+  stages have spans of their own, named apart from the JAX scopes:
+  ``mri.forward``, ``mri.adjoint``, ``mri.normal`` and ``cg.iter`` (the
+  MRI models), ``plan.apply``, ``plan.normal`` and ``plan.slots``
+  (``PlannedNufft``, whose stages also run under the stage names, as
+  the JAX planned path's do not) and ``prep.bin`` (the binning, inside
+  ``nufft.fold_rescale``).
 - **Host annotations** (``annotate``): the same, for host-side phases.
 - **Device tracing** (``start_trace``/``stop_trace``/``trace``): a
   ``torch.profiler`` session of CPU and (where present) CUDA activity
   that writes a Chrome/TensorBoard trace into a directory.
 - **Verbosity** (``set_verbosity``/``log``): stderr logging, the level
   from ``TFFT_VERBOSITY`` (default 0 = silent).
-- **Stage timing** (``time_stages``): best-of wall times of named thunks.
 """
 
 from __future__ import annotations
@@ -25,8 +30,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
-import time
-from typing import Callable, Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -132,27 +136,3 @@ def trace(logdir: str):
         yield
     finally:
         stop_trace()
-
-
-def time_stages(stages: Dict[str, Callable[[], object]],
-                repeats: int = 3) -> Dict[str, float]:
-    """Times named thunks eagerly (best of ``repeats``, seconds).
-
-    Each thunk is called once to warm up (kernel builds, caches), then
-    timed, with ``torch.cuda.synchronize()`` after each call where the
-    process uses CUDA. Logs a summary at verbosity >= 1. For device
-    timelines use ``trace``.
-    """
-    out: Dict[str, float] = {}
-    for name, thunk in stages.items():
-        thunk()
-        _sync()
-        best = float("inf")
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            thunk()
-            _sync()
-            best = min(best, time.perf_counter() - t0)
-        out[name] = best
-        log(1, f"stage {name}: {best * 1e3:.3f} ms")
-    return out
