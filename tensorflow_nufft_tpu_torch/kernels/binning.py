@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tensorflow_nufft_tpu_torch.kernels.torch_ops import es_kernel_for
+from tensorflow_nufft_tpu_torch.kernels.torch_ops import _const, es_kernel_for
 
 # Sentinel coordinate for padded slots: far outside any tile, so kernel
 # windows land out of range and contribute exactly zero.
@@ -261,6 +261,10 @@ def bin_points(points_resc, geom: TileGeometry,
                zorder: bool = False) -> BinnedPoints:
     """Groups points by tile and builds the padded chunk stream.
 
+    The per-tile counts come from the stable sort by tile id, without a
+    host readback (``torch.bincount`` reads its range back on the card),
+    so on the card the binning queues its work and never waits for it.
+
     Args:
         points_resc: coordinates in fine-grid units ([0, nf)): a
             [M, rank] tensor or a two-float (hi, lo) pair.
@@ -297,15 +301,20 @@ def bin_points(points_resc, geom: TileGeometry,
             - tid0 * zcells, 0, zcells - 1)
         key = tid * zcells + zc
 
-    counts = torch.bincount(tid, minlength=num_tiles).to(i32)
-    rounds = torch.clamp((counts + chunk - 1) // chunk, min=1)
-    chunk_starts = torch.cumsum(rounds, 0, dtype=i32) - rounds
     # Stable sort keeps arrival order within each tile (and z-cell); a
     # point's rank within its tile is its sorted position minus the
-    # tile's first.
+    # tile's first. The key orders by tile first, so a search of the
+    # sorted tile ids gives each tile's first position and count (tid is
+    # in range by its clamp).
     order = torch.argsort(key, stable=True)
-    tid_sorted = tid[order].long()
-    first = torch.cumsum(counts, 0, dtype=i32) - counts
+    tid_sorted = tid[order]
+    tile_ids = torch.arange(num_tiles + 1, dtype=i32, device=device)
+    bounds = torch.searchsorted(tid_sorted, tile_ids, out_int32=True)
+    first = bounds[:-1]
+    counts = bounds[1:] - first
+    rounds = torch.clamp((counts + chunk - 1) // chunk, min=1)
+    chunk_starts = torch.cumsum(rounds, 0, dtype=i32) - rounds
+    tid_sorted = tid_sorted.long()
     pos = torch.arange(m, dtype=i32, device=device)
     padpos_sorted = (chunk_starts[tid_sorted] * chunk
                      + (pos - first[tid_sorted]))
@@ -423,8 +432,7 @@ def slot_weights(coords: torch.Tensor, tile_bounds: torch.Tensor,
     rank = geom.rank
     origins = slot_origins(tile_bounds, geom, coords.dtype)
     j = torch.arange(plan.width, dtype=coords.dtype, device=coords.device)
-    hw = torch.tensor(plan.half_width, dtype=coords.dtype,
-                      device=coords.device)
+    hw = _const(plan.half_width, coords)
     weights, starts = [], []
     for d in range(rank):
         hi, lo = coords[d], coords[rank + d]

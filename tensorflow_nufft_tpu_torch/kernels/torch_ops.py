@@ -4,11 +4,14 @@ Counterpart of ``tensorflow_nufft_tpu.kernels.xla_ops`` (the parts the
 planar 2D path uses). Every operation is a separate eager torch op, so
 nothing is fused or contracted: the compensated (two-float) arithmetic
 of ``fold_and_rescale_split`` keeps its error terms exactly as the JAX
-version computes them.
+version computes them. The scalar and per-axis constants are built on
+the host once and cached on their device (``_const``), so a call after
+the first copies nothing from the host and never waits for the device.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -21,8 +24,22 @@ INFINITE = 2
 
 
 def _const(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(value), device=like.device).to(
-        like.dtype)
+    """``value`` (a numpy scalar or array) in ``like``'s dtype on its
+    device, cast there from the value's own numpy dtype. Cached, since a
+    pageable host-to-device copy waits for all the work queued before
+    it. The cached tensors are read only."""
+    a = np.asarray(value)
+    return _const_tensor(a.tobytes(), a.shape, a.dtype.str, like.dtype,
+                         like.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _const_tensor(raw: bytes, shape, np_dtype: str, dtype,
+                  device) -> torch.Tensor:
+    a = np.frombuffer(raw, dtype=np_dtype).reshape(shape).copy()
+    # Made outside inference mode, so autograd may save it later.
+    with torch.inference_mode(False):
+        return torch.as_tensor(a, device=device).to(dtype)
 
 
 def fold_and_rescale(points: torch.Tensor, fine_shape: Sequence[int],

@@ -160,3 +160,124 @@ def test_slot_tiles_mark_unused_chunks():
     for t in range(geom.num_tiles):
         owned = tiles[bounds[t] * geom.chunk:bounds[t + 1] * geom.chunk]
         assert (owned == t).all()
+
+
+def _bin_points_bincount(points_hi, geom, zorder):
+    """``bin_points``' layout with the per-tile counts from
+    ``torch.bincount``, the form the searched counts replace."""
+    i32 = torch.int32
+    m = points_hi.shape[0]
+    tiles, chunk = geom.tiles, geom.chunk
+    tid = None
+    for d in range(geom.rank):
+        td = torch.clamp(
+            torch.floor_divide(points_hi[:, d], geom.tile[d]).to(i32),
+            0, tiles[d] - 1)
+        tid = td if tid is None else tid * tiles[d] + td
+        if d == 0:
+            tid0 = td
+    key = tid
+    if zorder:
+        cell = tb.sort_cell_size(geom)
+        zcells = geom.tile[0] // cell
+        zc = torch.clamp(
+            torch.floor_divide(points_hi[:, 0], cell).to(i32)
+            - tid0 * zcells, 0, zcells - 1)
+        key = tid * zcells + zc
+    counts = torch.bincount(tid, minlength=geom.num_tiles).to(i32)
+    rounds = torch.clamp((counts + chunk - 1) // chunk, min=1)
+    chunk_starts = torch.cumsum(rounds, 0, dtype=i32) - rounds
+    order = torch.argsort(key, stable=True)
+    tid_sorted = tid[order].long()
+    first = torch.cumsum(counts, 0, dtype=i32) - counts
+    pos = torch.arange(m, dtype=i32)
+    padpos = torch.empty(m, dtype=i32)
+    padpos[order] = (chunk_starts[tid_sorted] * chunk
+                     + (pos - first[tid_sorted]))
+    chunk_tile = tb._chunk_tiles(chunk_starts, geom)
+    chunk_tidx = []
+    for d in range(geom.rank - 1, -1, -1):
+        chunk_tidx.append((chunk_tile % tiles[d]).to(i32))
+        chunk_tile = chunk_tile // tiles[d]
+    tile_bounds = torch.cat(
+        [chunk_starts, (chunk_starts[-1] + rounds[-1]).reshape(1)]).to(i32)
+    invpos = torch.full((geom.num_slots,), m, dtype=i32)
+    invpos[padpos.long()] = pos
+    return padpos, invpos, tuple(reversed(chunk_tidx)), tile_bounds
+
+
+_COUNT_FINE = {1: (512,), 2: (128, 192), 3: (64, 64, 128)}
+
+
+@pytest.mark.parametrize("kind", ("clustered", "ends"))
+@pytest.mark.parametrize("zorder", (False, True))
+@pytest.mark.parametrize("rank", (1, 2, 3))
+def test_bin_points_counts_match_bincount(rank, zorder, kind):
+    fine = np.array(_COUNT_FINE[rank], np.float32)
+    rng = np.random.default_rng(10 * rank + zorder)
+    m = 2000
+    if kind == "clustered":
+        # Two tight clusters: most tiles empty, two tiles overfull.
+        centers = rng.uniform(0, 1, (2, rank)) * fine
+        pts = (centers[rng.integers(0, 2, m)]
+               + 1.5 * rng.standard_normal((m, rank))) % fine
+    else:
+        # Uniform, then coordinates at and beyond the grid's ends and a
+        # NaN, which the tile ids clamp into range.
+        pts = rng.uniform(0, 1, (m, rank)) * fine
+        pts[:6] = np.stack([np.zeros(rank), fine, fine + 5.0,
+                            np.full(rank, -3.0), fine - 1e-3,
+                            np.full(rank, np.nan)])
+    pts = torch.from_numpy(pts.astype(np.float32))
+    geom = tb.choose_geometry(_COUNT_FINE[rank], 7, m, banded=zorder)
+    got = tb.bin_points((pts, torch.zeros_like(pts)), geom, zorder=zorder)
+    padpos, invpos, chunk_tidx, tile_bounds = _bin_points_bincount(
+        pts, geom, zorder)
+    for field, want in (("padpos", padpos), ("invpos", invpos),
+                        ("tile_bounds", tile_bounds)):
+        assert getattr(got, field).dtype == torch.int32, field
+        assert torch.equal(getattr(got, field), want), field
+    for d in range(rank):
+        assert torch.equal(got.chunk_tidx[d], chunk_tidx[d])
+    if kind == "clustered" and geom.num_tiles > 4:
+        counts = np.diff(got.tile_bounds.numpy())
+        assert (counts == 1).sum() >= geom.num_tiles // 2   # empty tiles
+
+
+def test_fold_constants_cached_on_device():
+    info = torch_ops._const_tensor.cache_info
+    pts = torch.from_numpy(_points("extended", 300))
+    for dtype in (torch.float32, torch.float64):
+        torch_ops.fold_and_rescale_split(pts.to(dtype), FINE, 1)
+    before = info()
+    for points_range in (0, 1, 2, 1):
+        torch_ops.fold_and_rescale_split(pts, FINE, points_range)
+    torch_ops.fold_and_rescale_split(pts.double(), FINE, 1)
+    after = info()
+    assert after.misses == before.misses
+    assert after.hits > before.hits
+    # A fine shape and a dtype not folded before each build constants.
+    torch_ops.fold_and_rescale_split(pts, (136, 200), 1)
+    assert info().misses > after.misses
+    before = info()
+    torch_ops._const(np.float32(4097.0), pts.to(torch.float16))
+    assert info().misses == before.misses + 1
+    # The cached constant is the value cast from its numpy dtype.
+    c64 = np.array(FINE, np.float64) / (2.0 * np.pi)
+    for value, like in ((c64, pts), (c64, pts.double()),
+                        (c64.astype(np.float32), pts),
+                        (np.float32(np.pi), pts.double())):
+        got = torch_ops._const(value, like)
+        assert got is torch_ops._const(value, like)
+        assert got.dtype == like.dtype and got.device == like.device
+        assert got.shape == np.shape(value)
+        want = torch.from_numpy(np.asarray(value)).to(like.dtype)
+        assert torch.equal(got, want)
+    # A constant first built under inference mode can still be saved for
+    # backward by a later call that records gradients.
+    with torch.inference_mode():
+        torch_ops.fold_and_rescale_split(pts, (144, 208), 1)
+    p = pts.clone().requires_grad_()
+    hi, _ = torch_ops.fold_and_rescale_split(p, (144, 208), 1)
+    hi.sum().backward()
+    assert p.grad is not None

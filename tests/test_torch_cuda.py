@@ -1337,3 +1337,35 @@ def test_sharded_on_cuda_matches_unsharded(dev, monkeypatch, case):
     assert {w: w.launches - before[w] for w in want} == want
     assert got.is_cuda
     _close(got, unsharded())
+
+
+def test_training_step_has_no_blocking_sync(dev):
+    """Once warmed up, a 3D type-2 training step (loss, backward to the
+    image and the points: three folds and binnings of the same points)
+    queues its work without waiting for the card: no host readback and no
+    pageable host-to-device copy."""
+    grid, m = (32, 32, 32), 4000
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((1,) + grid + (2,)).astype(
+        np.float32)).to(dev).requires_grad_()
+    k = torch.from_numpy(rng.uniform(-np.pi, np.pi, (m, 3)).astype(
+        np.float32)).to(dev).requires_grad_()
+    y = torch.from_numpy(rng.standard_normal((1, m, 2)).astype(
+        np.float32)).to(dev)
+
+    def step():
+        x.grad = k.grad = None
+        out = tnt.planar.nufft(x, k)
+        loss = 0.5 * (out - y).square().sum()
+        loss.backward()
+        return loss.detach()
+
+    want = step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    assert x.grad is not None and k.grad is not None
