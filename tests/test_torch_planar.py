@@ -115,6 +115,28 @@ def test_planned_matches_jax(transform_type, batch):
                    jop.adjoint()(adj_src)) <= RTOL
 
 
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("tol", [1e-6, 1e-3])
+def test_planned_batch16_matches_plain_reference(direction, tol):
+    """2D type-1 of 16 value sets on one set of points (the upstream 2D
+    benchmark case's shape, small) against the benchmark's float64
+    NUDFT, plain torch, at every mode: within 10 tol of the peak, the
+    configuration's guarantee."""
+    from benchmark.reference import nudft
+    grid, m, batch = (48, 64), 2000, 16
+    pts = _points(m, 11)
+    src = _source("type_1", grid, m, (batch,), 12)
+    op = tnt.PlannedNufft(pts, grid, transform_type="type_1",
+                          fft_direction=direction, tol=tol, device="cpu")
+    got = tnt.planar.from_planar(op(torch.from_numpy(src)).double())
+    values = tnt.planar.from_planar(torch.from_numpy(src).double())
+    want = nudft.exact_type1_subset(
+        torch.from_numpy(pts), values, torch.arange(np.prod(grid)), grid,
+        sign=-1.0 if direction == "forward" else 1.0)
+    assert _relerr(torch.view_as_real(got.reshape(batch, -1)),
+                   torch.view_as_real(want)) <= 10 * tol
+
+
 def test_planned_adjoint_identity():
     """<A x, y> == <x, A^H y> for the planned pair."""
     grid, m = (64, 64), 1500
