@@ -20,7 +20,8 @@
 //     8-row combined payload (2 * rank + B2 > 8: the source and points
 //     gradients of training) and for slot-order values (values_slots:
 //     PlannedNufft.normal, apply_from_slots); here the unplanned spread
-//     at any B2, channel pairs on blockIdx.y, the last one partial.
+//     at any B2, channel groups (rank 3: pairs; rank 2: up to 32) on
+//     blockIdx.y, the last one partial.
 //     Values are always read in slot order, so slot-order input only
 //     skips the caller's gather.
 //   tensorflow_nufft_tpu/kernels/pallas_spread.py:_spread_kernel_banded
@@ -39,22 +40,25 @@
 //
 // Design. One layout serves every geometry, banded or not. A block owns
 // `slab` axis-0 rows of one tile (of its band's tile at the binned level)
-// for a channel group of one or two, and of each row the axis-1 lines
-// [q0, q0 + lines): all E1 lines wherever a row's planes fit half an SM,
-// fewer where they do not (ext (278, 278, 278) at 135^3, for instance).
-// Each warp owns one row's planes [lines][E2] (rank 3; [lines] at rank
-// 2) in every channel of the group, in shared memory, and walks the
-// tile's slots in order without a block barrier: it tests 32 slots at a
-// time against its row (one ballot over the axis-0 window starts, and
-// the axis-1 windows where the block owns only some lines), the hitting
-// lanes load their slot's axis-0 weight, starts and values into
-// registers and copy its axis-1 (and axis-2) windows into the warp's
-// shared copy, and the warp takes the hits in slot order: each hit's
-// window cells past axis 0 (w^2 at rank 3, w at rank 2) go across the
-// lanes, lane l taking window offsets t = l + 32 q, one product per cell
-// and channel. The lanes form the products of a few hits first, then add
-// them hit by hit, a warp barrier after each hit ordering one cell's
-// additions across lanes. Banded, the warp first skips, by one ballot
+// for a channel group, and of each row the axis-1 lines [q0, q0 +
+// lines): all E1 lines wherever a row's planes fit half an SM, fewer
+// where they do not (ext (278, 278, 278) at 135^3, for instance). One
+// warp owns one row's planes in shared memory.
+//
+// Rank 3 (spread_rows_kernel): a group of one or two channels; a warp
+// owns its row's planes [lines][E2] in each channel of the group and
+// walks the tile's slots in order without a block barrier: it tests 32
+// slots at a time against its row (one ballot over the axis-0 window
+// starts, and the axis-1 windows where the block owns only some lines),
+// the hitting lanes load their slot's axis-0 weight, starts and values
+// into registers and copy its axis-1 and axis-2 windows into the warp's
+// shared copy, and the warp takes the hits in slot order: each hit's w^2
+// window cells past axis 0 go across the lanes, lane l taking window
+// offsets t = l + 32 q, one product per cell and channel. The lanes form
+// the products of a few hits first, then add them hit by hit, a warp
+// barrier after each hit ordering one cell's additions across lanes. A
+// row's planes [lines][E2] leave no room for wider groups, so each pair
+// of channels repeats the walk. Banded, the warp first skips, by one ballot
 // per 32 sub-chunks, the sub-chunks whose band [zorigins[j], + band)
 // misses its row. The fused variant gives each block (t0, t1, slab,
 // pair) all nt2 tiles of its (t0, t1) in turn: it spreads tile t2's
@@ -64,9 +68,27 @@
 // at t2 = 0 and added to after, so the t2 sum is a loop inside the block
 // (no carry between blocks, no atomics).
 //
-// Determinism: each output cell is written by one warp, whose barrier
-// orders its lanes, in slot order (and t2 order), with no atomics, so
-// every result is bit-repeatable like the TPU kernel's. Shared-memory
+// Rank 2 (spread_rows_kernel_2d): lanes go across channels, not window
+// cells, so one pass of a tile's slots serves up to kMaxRowChannels = 32
+// channels (a 16-coil type-1 is 32). A row's planes are [lines][C],
+// cell-major and channel-minor, C the group rounded up to a power of
+// two; lane (c, r) owns channel c of the lines l = r (mod 32 / C), and
+// adds each hit's products to those cells itself, in slot order: one
+// writer per cell and channel, so no barrier or shuffle a hit (at C = 32
+// a lane takes all w cells of a hit, at C = 2 at most one, as the pair
+// design did). A hit needs C values at once, so the block stages the
+// tile's slots in batches of one a thread into shared memory: of each
+// batch only the slots whose window meets the block's rows and lines (a
+// fifth at slab 7 of ext 72), compacted in slot order, with their
+// starts, both windows and C values; three block barriers a batch. The
+// warps find their row's hits by a ballot over the staged axis-0 starts.
+// The group narrows below 32 only where one row of E1 lines and its
+// share of the staging do not fit half an SM (ext 1008^2 at 500^2: 16).
+//
+// Determinism: each output cell is written by one warp (rank 3: whose
+// barrier orders its lanes; rank 2: by one lane), in slot order (and t2
+// order), with no atomics, so every result is bit-repeatable like the
+// TPU kernel's. Shared-memory
 // atomics (the cuFINUFFT SM method) would let all threads work on every
 // slot, at the cost of that repeatability. A cell gets (w0 w1)(v w2) at
 // rank 3 and w0 (v w1) at rank 2 with the products rounded as written
@@ -76,12 +98,20 @@
 //
 // What bounds it on the H100: not memory traffic (each input is read
 // about once; the windows kernel writes and the spread reads rank * (w +
-// 1) words a slot) but the chain of each hit, about 17 shared-memory or
-// shuffle operations for a channel pair, taken in order by one warp,
-// with 12 to 16 warps per SM (a row's planes fill the shared memory):
-// about 700 SM cycles per hit and warp at the 3D headlines (PERF.md).
-// A slot hits w rows, so the work is w hits a slot and channel pair,
-// 5.6e6 at 800,000 points and width 7. The row-owner design before it
+// 1) words a slot) but the instructions of each hit. Rank 3: the chain
+// of about 17 shared-memory or shuffle operations for a channel pair,
+// taken in order by one warp, with 12 to 16 warps per SM (a row's planes
+// fill the shared memory): about 700 SM cycles per hit and warp at the
+// 3D headlines (PERF.md). A slot hits w rows, so the work is w hits a
+// slot and channel pair, 5.6e6 at 800,000 points and width 7. Rank 2:
+// the staging more than the hits (PERF.md): each block re-reads the
+// window starts of its tile's slots, and for each meeting slot C values
+// from C rows of the values payload, whose 32-byte sectors it uses an
+// eighth of, at 14 warps per SM at C = 32 (a row's planes and its share
+// of the staging fill half an SM); the 1.4e6 hits at 200,000 points and
+// width 7 take w cells for all 32 channels at once. The pair design it
+// replaced walked each tile's slots once per pair, 16 times at 32
+// channels. The row-owner design before it
 // tested every slot in every row of its tile (49 of 576 rows at 3D ext
 // (24, 24, 72) did work on a slot) at one block of 166 KB per SM.
 //
@@ -451,6 +481,175 @@ __global__ void __launch_bounds__(kMaxRowThreads)
   }
 }
 
+// Channels a rank-2 block holds at most: one a lane.
+constexpr int kMaxRowChannels = 32;
+
+// The channels a rank-2 block holds (kernels/spread.py:line_channels):
+// the group rounded up to a power of two.
+inline int row_channels(int group) {
+  int chan = 1;
+  while (chan < group) chan *= 2;
+  return chan;
+}
+
+// Words of a slot record of a rank-2 block: the slot's axis-0 and axis-1
+// window starts, its two windows and chan values, made odd so that the
+// records of consecutive slots begin in distinct banks.
+__host__ __device__ constexpr int row_record(int chan, int width) {
+  return (2 + 2 * width + chan) | 1;
+}
+
+// Shared memory of a rank-2 block: each slab row's planes [lines][chan]
+// (a line padded to an odd chan | 1 floats), and one slot record and one
+// slot index a thread, and a count a warp.
+__host__ __device__ inline int rows2_smem(int slab, int lines, int chan,
+                                          int width) {
+  return 4 * (slab * (lines * (chan | 1) + 32 * (row_record(chan, width) + 1)) +
+              kMaxRowThreads / 32);
+}
+
+// The rank-2 spread (source note above): block (tile * nslabs + slab) *
+// nqs + piece, channel group of up to kChan; one warp per slab row, whose
+// planes [lines][kChan] are cell-major and channel-minor, a line padded
+// to an odd kPitch floats so that both a hit's accesses (lanes across
+// channels and lines) and the write-out's (lanes along the lines) fall
+// in distinct banks. Lane (c, r), c = lane % kChan, owns channel c of
+// the row's lines l = r (mod kLanes). The block takes the tile's slots in
+// batches of blockDim.x, one a thread: it tests each slot's window starts
+// against its rows and lines, gives the slots that meet them consecutive
+// records in slot order (a ballot and a count a warp), and loads into the
+// records their starts, their two windows (lanes along each slot's
+// weights) and their values (a thread a slot, coalesced along the slots
+// of each channel). Each warp then finds the records that hit its row,
+// one ballot over 32 staged axis-0 starts, and takes them in slot order,
+// each lane adding w0 (v w1) to its own cells of the hit's window: one
+// writer per cell and channel, so no barrier a hit. ws/st are the slots'
+// windows [2][slots][w] and starts [2][slots] (the planned artifact or
+// windows_kernel's).
+template <int kW, int kChan>
+__global__ void __launch_bounds__(kMaxRowThreads)
+    spread_rows_kernel_2d(const int* __restrict__ tile_bounds,
+                          const int* __restrict__ zorigins,
+                          const float* __restrict__ values,
+                          const float* __restrict__ ws,
+                          const int* __restrict__ st,
+                          const float* __restrict__ tw,
+                          float* __restrict__ out, Geometry g, EsKernel k,
+                          tnt::Band bd) {
+  constexpr int kLanes = 32 / kChan;  // lanes per channel
+  constexpr int kPitch = kChan | 1;   // floats of a line in the planes
+  constexpr int kCells = (kW + kLanes - 1) / kLanes;  // a lane's, a hit
+  extern __shared__ float acc[];
+  const int w = k.width, rec = row_record(kChan, w);
+  const int e0 = g.e[0], e1 = g.e[1];
+  const int nslabs = (e0 + bd.slab - 1) / bd.slab;
+  const int nqs = (e1 + bd.lines - 1) / bd.lines;
+  const int piece = blockIdx.x % nqs;
+  const int tile = blockIdx.x / nqs / nslabs;
+  const int r0 = ((blockIdx.x / nqs) % nslabs) * bd.slab;
+  const int nrows = min(bd.slab, e0 - r0);
+  const int q0 = piece * bd.lines;
+  const int nq = min(bd.lines, e1 - q0);
+  const int ch = blockIdx.y * g.group;
+  const int nc = min(g.group, g.batch2 - ch);
+  const int nb = blockDim.x;  // slots a batch
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = lane % kChan, r = lane / kChan;
+  const bool mine = c < nc;  // the lane holds a channel of the group
+  const int row = r0 + warp;
+  const size_t slots = g.slots;
+  float* planes = acc + warp * bd.lines * kPitch;
+  float* recs = acc + bd.slab * bd.lines * kPitch;   // [nb][rec]
+  int* irecs = reinterpret_cast<int*>(recs);
+  int* counts = irecs + nb * rec;                    // [nb / 32]
+  int* order = counts + kMaxRowThreads / 32;         // [nb]: a record's slot
+  // The first batch's barriers order the zeros before any addition.
+  for (int i = threadIdx.x; i < bd.slab * bd.lines * kPitch; i += nb)
+    acc[i] = 0.0f;
+  const int beg = tile_bounds[tile] * g.chunk;
+  const int end = tile_bounds[tile + 1] * g.chunk;
+  for (int base = beg; base < end; base += nb) {
+    const int n = min(nb, end - base);
+    const int e = threadIdx.x, i = base + e;
+    // Padded slots start far outside the tile (binning.SENTINEL).
+    int s0 = 0, s1 = 0;
+    if (e < n) {
+      s0 = st[i];
+      s1 = st[slots + i];
+    }
+    const bool meets = e < n && s0 < r0 + nrows && s0 + w > r0 &&
+                       s1 < q0 + nq && s1 + w > q0;
+    const unsigned held = __ballot_sync(0xffffffffu, meets);
+    if (lane == 0) counts[warp] = __popc(held);
+    __syncthreads();  // also: every warp is done with the last records
+    // The slots that meet the block take records 0 .. total, in order.
+    int at = __popc(held & ((1u << lane) - 1u)), total = 0;
+    for (int x = 0; x < nb / 32; ++x) {
+      total += counts[x];
+      if (x < warp) at += counts[x];
+    }
+    if (meets) {
+      irecs[at * rec] = s0;
+      irecs[at * rec + 1] = s1 - q0;  // from the block's first line
+      order[at] = i;
+    }
+    __syncthreads();
+    for (int x = threadIdx.x; x < total * w; x += nb) {
+      const int a = x / w, j = x - a * w;
+      const size_t o = order[a];
+      recs[a * rec + 2 + j] = ws[o * w + j];
+      recs[a * rec + 2 + w + j] = ws[(slots + o) * w + j];
+    }
+    if (e < total) {
+      const size_t o = order[e];
+#pragma unroll
+      for (int cc = 0; cc < kChan; ++cc)
+        if (cc < nc)
+          recs[e * rec + 2 + 2 * w + cc] = values[(ch + cc) * slots + o];
+    }
+    __syncthreads();
+    if (warp >= nrows) continue;  // warp-uniform
+    for (int g0 = 0; g0 < total; g0 += 32) {
+      const int j = g0 + lane;
+      // The row's offset in the slot's axis-0 window.
+      const int d = j < total ? row - irecs[j * rec] : -1;
+      unsigned m = __ballot_sync(0xffffffffu, (unsigned)d < (unsigned)w);
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1u;
+        const int dh = __shfl_sync(0xffffffffu, d, src);
+        const float* x = recs + (g0 + src) * rec;
+        const int s1h = reinterpret_cast<const int*>(x)[1];
+        const float w0 = x[2 + dh];
+        const float v = mine ? x[2 + 2 * w + c] : 0.0f;
+        const float* w1 = x + 2 + w;
+        // The lane's first window offset: its line s1h + t = r (mod
+        // kLanes).
+        const int t0 = (r - s1h) & (kLanes - 1);
+        float* p = planes + (s1h + t0) * kPitch + c;
+#pragma unroll
+        for (int q = 0; q < kCells; ++q) {
+          if (q * kLanes >= w) break;  // uniform
+          const int t = t0 + q * kLanes, l = s1h + t;
+          if (mine && t < w && (unsigned)l < (unsigned)nq)
+            p[q * kLanes * kPitch] =
+                __fadd_rn(p[q * kLanes * kPitch],
+                          __fmul_rn(w0, __fmul_rn(v, w1[t])));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // Out: a warp per channel and row at a time, its lanes along the lines.
+  float* dst = out + (((size_t)tile * g.batch2 + ch) * e0 + r0) * e1 + q0;
+  for (int o = warp; o < nc * nrows; o += nb / 32) {
+    const int cc = o / nrows, rr = o % nrows;
+    const float* src = acc + rr * bd.lines * kPitch + cc;
+    for (int l = lane; l < nq; l += 32)
+      dst[((size_t)cc * e0 + rr) * e1 + l] = src[l * kPitch];
+  }
+}
+
 // Cells of a tile's line a rank-1 warp owns: kLineCells a lane.
 constexpr int kLineCells = 2;
 constexpr int kLineRun = 32 * kLineCells;
@@ -653,19 +852,25 @@ using RowsFn = void (*)(const int*, const int*, const float*, const float*,
 using WindowsFn = void (*)(const int*, const int*, const float*, float*,
                            int*, Geometry, EsKernel, tnt::Band);
 
-template <int kRank, bool kBanded, bool kFused>
+template <bool kBanded, bool kFused>
 RowsFn rows_fn(int width) {
-  if constexpr (kRank == 2) {
-    return spread_rows_kernel<2, kBanded, kFused, 1>;  // w <= 32: one round
-  } else {
-    if (width <= rounds_width<1>())
-      return spread_rows_kernel<3, kBanded, kFused, 1>;
-    if (width <= rounds_width<2>())
-      return spread_rows_kernel<3, kBanded, kFused, 2>;
-    if (width <= rounds_width<4>())
-      return spread_rows_kernel<3, kBanded, kFused, 4>;
-    return spread_rows_kernel<3, kBanded, kFused, 8>;
-  }
+  if (width <= rounds_width<1>())
+    return spread_rows_kernel<3, kBanded, kFused, 1>;
+  if (width <= rounds_width<2>())
+    return spread_rows_kernel<3, kBanded, kFused, 2>;
+  if (width <= rounds_width<4>())
+    return spread_rows_kernel<3, kBanded, kFused, 4>;
+  return spread_rows_kernel<3, kBanded, kFused, 8>;
+}
+
+template <int kW>
+RowsFn rows2_fn_chan(int chan) {
+  return chan == 1    ? spread_rows_kernel_2d<kW, 1>
+         : chan == 2  ? spread_rows_kernel_2d<kW, 2>
+         : chan == 4  ? spread_rows_kernel_2d<kW, 4>
+         : chan == 8  ? spread_rows_kernel_2d<kW, 8>
+         : chan == 16 ? spread_rows_kernel_2d<kW, 16>
+                      : spread_rows_kernel_2d<kW, 32>;
 }
 
 template <int kRank, bool kBanded>
@@ -677,14 +882,21 @@ WindowsFn windows_fn(int width) {
 }
 
 // The launch parameters the rank-2 and rank-3 spreads take: a row-slab
-// layout with one warp per slab row, channel groups of one or two, a
-// width the kernels are built for.
+// layout with one warp per slab row, a width the kernels are built for,
+// channel groups of one or two at rank 3 and of up to kMaxRowChannels at
+// rank 2, whose shared memory rows2_smem gives.
 bool rows_valid(const Geometry& g, const EsKernel& k, const tnt::Band& bd,
-                int threads) {
-  return bd.slab >= 1 && bd.lines >= 1 && bd.lines <= g.e[1] &&
-         k.width >= 1 && k.width <= tnt::kMaxWidth && g.group >= 1 &&
-         g.group <= 2 && threads == 32 * bd.slab &&
-         threads <= kMaxRowThreads;
+                const int* ip) {
+  const int threads = ip[tnt::kThreads];
+  if (!(bd.slab >= 1 && bd.lines >= 1 && bd.lines <= g.e[1] &&
+        k.width >= 1 && k.width <= tnt::kMaxWidth && g.group >= 1 &&
+        threads == 32 * bd.slab && threads <= kMaxRowThreads))
+    return false;
+  if (g.rank == 2)
+    return g.group <= kMaxRowChannels &&
+           ip[tnt::kSmem] == rows2_smem(bd.slab, bd.lines,
+                                        row_channels(g.group), k.width);
+  return g.group <= 2;
 }
 
 // Launches the windows kernel (into ws/st) where `windows`, then the
@@ -743,14 +955,16 @@ extern "C" int tnt_spread(int planned, const void* tile_bounds,
         planned ? (const float*)weights : nullptr,
         planned ? (const int*)starts : nullptr, (float*)out, g, k, bd, ip,
         (cudaStream_t)stream);
-  if (g.rank < 2 || g.rank > 3 || !rows_valid(g, k, bd, ip[tnt::kThreads]))
+  if (g.rank < 2 || g.rank > 3 || !rows_valid(g, k, bd, ip))
     return (int)cudaErrorInvalidValue;
   WindowsFn windows = nullptr;
   if (!planned)
     windows = g.rank == 2 ? windows_fn<2, false>(k.width)
                           : windows_fn<3, false>(k.width);
-  const RowsFn fn = g.rank == 2 ? rows_fn<2, false, false>(k.width)
-                                : rows_fn<3, false, false>(k.width);
+  const int chan = row_channels(g.group);
+  const RowsFn fn = g.rank == 3       ? rows_fn<false, false>(k.width)
+                    : k.width <= 8    ? rows2_fn_chan<8>(chan)
+                                      : rows2_fn_chan<tnt::kMaxWidth>(chan);
   return (int)launch_rows(
       windows, fn, tnt::num_tiles(g), (const int*)tile_bounds, nullptr,
       (const float*)values, (const float*)coords, (float*)weights,
@@ -775,13 +989,12 @@ extern "C" int tnt_spread_banded(int fused, const void* tile_bounds,
   const EsKernel k = tnt::es_from(ip, fp);
   const tnt::Band bd = tnt::band_from(ip);
   if (g.rank != 3 || bd.sublen < 1 || g.chunk % bd.sublen ||
-      !rows_valid(g, k, bd, ip[tnt::kThreads]) ||
-      bd.lines != g.e[1] || (fused && g.group != 2))
+      !rows_valid(g, k, bd, ip) || bd.lines != g.e[1] ||
+      (fused && g.group != 2))
     return (int)cudaErrorInvalidValue;
   return (int)launch_rows(
       windows_fn<3, true>(k.width),
-      fused ? rows_fn<3, true, true>(k.width)
-            : rows_fn<3, true, false>(k.width),
+      fused ? rows_fn<true, true>(k.width) : rows_fn<true, false>(k.width),
       fused ? g.nt[0] * g.nt[1] : tnt::num_tiles(g), (const int*)tile_bounds,
       (const int*)zorigins, (const float*)values, (const float*)coords,
       (float*)ws, (int*)st, (const float*)tw, (float*)out, g, k, bd, ip,

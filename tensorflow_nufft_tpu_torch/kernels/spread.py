@@ -18,9 +18,9 @@ Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_spread`` (ranks 1,
   the TPU takes once a channel group no longer fits one 8-row payload
   beside its coordinates (2 * rank + B2 > 8: training's source and
   points gradients): coords and values are separate payloads here at
-  every width, and channel pairs (rank 1: groups of up to
-  ``LINE_CHANNELS``) go to the launch grid's second dimension, the last
-  one partial. Values are always read in slot
+  every width, and channel groups (rank 3: pairs; rank 2: up to
+  ``ROW_CHANNELS``; rank 1: up to ``LINE_CHANNELS``) go to the launch
+  grid's second dimension, the last one partial. Values are always read in slot
   order, so the split pair's slot-order input (``values_slots``, of
   ``PlannedNufft.normal`` and ``apply_from_slots``) only skips the
   caller's gather (``dispatch.spread_tiled``).
@@ -36,17 +36,25 @@ Counterpart of ``tensorflow_nufft_tpu.kernels.pallas_spread`` (ranks 1,
 (``dfta_plain`` adds the epilogue's); the dispatcher uses them for CPU
 tensors and ``chip_smoke.py`` holds each kernel to them on the card.
 Each CUDA entry point counts its launches in its ``launches``
-attribute.
+attribute; ``spread_planned_cuda`` and ``spread_unplanned_cuda`` also
+count the channel groups of their rank-2 launches in
+``channel_groups``.
 
 What bounds the kernels on the H100 and what their design does about it
 is in the source note of ``csrc/spread.cu``; in short: no block holds a
 whole tile (one extended tile exceeds a block's shared memory on many
 geometries), a block owns an axis-0 slab of a tile (and of each row the
-axis-1 lines that fit) for one or two channels, one warp per row, with
+axis-1 lines that fit) for a channel group, one warp per row, with
 the same layout banded or not (``launch_shape``). Each warp finds the
-slots that hit its row with one ballot per 32 slots and spreads each
-hit's window across its lanes in slot order: every output cell has one
-owner and a fixed order (deterministic, no atomics). At rank 1, where a
+slots that hit its row with one ballot per 32 slots and takes the hits
+in slot order: every output cell has one owner and a fixed order
+(deterministic, no atomics). At rank 3 the group is one or two
+channels and a hit's window goes across the warp's lanes. At rank 2
+the lanes go across the channels instead, up to ``ROW_CHANNELS`` in one
+group, so one pass of a tile's slots serves them all: the block stages
+the tile's slots (starts, windows, every channel's values) in shared
+memory in batches, and each lane adds its own channel's products to its
+own cells of each hit. At rank 1, where a
 row is one cell, a warp owns a run of ``LINE_RUN`` cells of a tile's
 line instead, two a lane in registers for up to ``LINE_CHANNELS``
 channels, and blocks of up to ``LINE_WARPS`` warps cover a tile's runs,
@@ -74,6 +82,9 @@ ROW_WARPS = 16
 # Shared memory of a spread block at most: two blocks per SM (half its
 # 228 KB, less the 1 KB each block reserves).
 HALF_SM = 113 * 1024
+# Channels of a rank-2 spread block at most, one a lane (kMaxRowChannels
+# in csrc/spread.cu).
+ROW_CHANNELS = 32
 # Cells of a rank-1 tile's line one warp owns (kLineRun in csrc/spread.cu).
 LINE_RUN = 64
 # Warps of a rank-1 spread block at most (kMaxLineThreads / 32), and the
@@ -84,21 +95,39 @@ LINE_CHANNELS = 8
 
 
 def line_channels(group: int) -> int:
-    """Channels a rank-1 spread block holds for a group of ``group``: the
-    next power of two (``line_channels`` in csrc/spread.cu)."""
+    """Channels a rank-1 or rank-2 spread block holds for a group of
+    ``group``: the next power of two (``line_channels`` and
+    ``row_channels`` in csrc/spread.cu)."""
     return 1 << (group - 1).bit_length()
+
+
+def row_record(chan: int, width: int) -> int:
+    """Words of a slot staged by a rank-2 spread block holding ``chan``
+    channels: two window starts, two windows and the values, made odd
+    (``row_record`` in csrc/spread.cu)."""
+    return (2 + 2 * width + chan) | 1
 
 
 def launch_shape(geom: TileGeometry, batch2: int, width: int,
                  fused: bool = False):
     """(group, slab, lines, threads, smem bytes) of a spread launch, banded
-    or not: a channel pair (the fused epilogue needs one) or a single
-    channel; of each axis-0 row the axis-1 lines a block owns, all E1
-    where a row's planes [group, E1, E2] (rank 2: [group, E1]) and the
-    warp's copy of 32 slots' windows past axis 0 fit half an SM, else as
-    many as fit, evened out over E1; and the most axis-0 rows, one warp
-    each, that let two blocks share an SM, evened out over E0. Every
-    geometry fits: a line is at most E2 floats a channel.
+    or not. Rank 3: a channel pair (the fused epilogue needs one) or a
+    single channel; of each axis-0 row the axis-1 lines a block owns,
+    all E1 where a row's planes [group, E1, E2] and the warp's copy of 32
+    slots' windows past axis 0 fit half an SM, else as many as fit,
+    evened out over E1; and the most axis-0 rows, one warp each, that let
+    two blocks share an SM, evened out over E0. Every geometry fits: a
+    line is at most E2 floats a channel.
+
+    Rank 2: the same slabs and lines, for a group of up to
+    ``ROW_CHANNELS`` channels, one a lane: a row's planes are
+    [lines, line_channels(group)], a line padded to an odd
+    ``line_channels(group) | 1`` floats; each warp's share of the staged
+    slots is 32 records of ``row_record`` words and their slot indices,
+    and the block adds a count a warp (``ROW_WARPS``). The group is
+    narrowed (to the next lower power of two) only where one row of all
+    E1 lines and its share do not fit half an SM; wider channel counts
+    take groups on the grid.
 
     Rank 1: ``group`` is up to ``LINE_CHANNELS`` channels, all served by
     one block from one evaluation of the windows (wider channel counts
@@ -116,20 +145,36 @@ def launch_shape(geom: TileGeometry, batch2: int, width: int,
         threads = 32 * slab
         return group, slab, 1, threads, 2 * threads * 4 * (
             line_channels(group) + 1 + width)
-    group = 2 if fused else min(batch2, 2)
     e0, e1 = geom.ext[:2]
-    line = geom.ext[2] if rank == 3 else 1
-    win = 4 * 32 * (rank - 1) * width
-    most_lines = (HALF_SM - win) // (4 * group * line)
+    if rank == 2:
+        # Channels go across the lanes: the group narrows from
+        # ROW_CHANNELS only where a row's planes [E1, chan] and the
+        # warp's share of the staged slots (32 records and their slot
+        # indices) do not fit half an SM beside the warps' counts.
+        fixed = 4 * ROW_WARPS
+        group = min(batch2, ROW_CHANNELS)
+        while True:
+            chan = line_channels(group)
+            win = 4 * 32 * (row_record(chan, width) + 1)
+            if chan == 1 or 4 * e1 * (chan | 1) + win + fixed <= HALF_SM:
+                break
+            group = chan // 2
+        line = chan | 1  # floats of an axis-1 line, padded to be odd
+    else:
+        fixed = 0
+        group = 2 if fused else min(batch2, 2)
+        line = group * geom.ext[2]
+        win = 4 * 32 * 2 * width
+    most_lines = (HALF_SM - fixed - win) // (4 * line)
     if most_lines < 1:
         raise ValueError(
             f"spread kernel: one axis-1 line of ext {geom.ext} does not fit "
             f"one thread block")
     lines = -(-e1 // -(-e1 // min(most_lines, e1)))
-    row = 4 * group * lines * line + win
-    most = min(HALF_SM // row, ROW_WARPS, e0)
+    row = 4 * lines * line + win
+    most = min((HALF_SM - fixed) // row, ROW_WARPS, e0)
     slab = -(-e0 // -(-e0 // most))
-    return group, slab, lines, 32 * slab, row * slab
+    return group, slab, lines, 32 * slab, row * slab + fixed
 
 
 def _launch(values_pl, tile_bounds, geom: TileGeometry, plan,
@@ -172,7 +217,14 @@ def _launch(values_pl, tile_bounds, geom: TileGeometry, plan,
                             0 if st is None else st.data_ptr(),
                             out.data_ptr(), ints, floats, stream)
     _build.check(rc, "spread kernel launch")
-    return out.reshape(geom.tiles + (batch2,) + geom.ext)
+    return (out.reshape(geom.tiles + (batch2,) + geom.ext),
+            -(-batch2 // group))
+
+
+def _count(wrapper, geom: TileGeometry, groups: int) -> None:
+    wrapper.launches += 1
+    if geom.rank == 2:
+        wrapper.channel_groups += groups
 
 
 def spread_planned_cuda(values_pl: torch.Tensor, tile_bounds: torch.Tensor,
@@ -180,8 +232,8 @@ def spread_planned_cuda(values_pl: torch.Tensor, tile_bounds: torch.Tensor,
                         kw: KernelWeights) -> torch.Tensor:
     """Hopper spread from the planned windows: values [B2, slots]
     -> tiles [*tiles, B2, *ext] (float32)."""
-    out = _launch(values_pl, tile_bounds, geom, plan, kw, None)
-    spread_planned_cuda.launches += 1
+    out, groups = _launch(values_pl, tile_bounds, geom, plan, kw, None)
+    _count(spread_planned_cuda, geom, groups)
     return out
 
 
@@ -190,13 +242,17 @@ def spread_unplanned_cuda(values_pl: torch.Tensor,
                           plan, coords: torch.Tensor) -> torch.Tensor:
     """Hopper spread evaluating the windows in the kernel from the
     [4, slots] coords payload."""
-    out = _launch(values_pl, tile_bounds, geom, plan, None, coords)
-    spread_unplanned_cuda.launches += 1
+    out, groups = _launch(values_pl, tile_bounds, geom, plan, None, coords)
+    _count(spread_unplanned_cuda, geom, groups)
     return out
 
 
+# Launches, and the channel groups (the launch grid's second dimension)
+# of the rank-2 launches: each group is one pass of every tile's slots.
 spread_planned_cuda.launches = 0
 spread_unplanned_cuda.launches = 0
+spread_planned_cuda.channel_groups = 0
+spread_unplanned_cuda.channel_groups = 0
 
 
 def _launch_banded(values_pl, tile_bounds, geom: TileGeometry, plan,

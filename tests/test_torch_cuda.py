@@ -139,11 +139,12 @@ def test_interp_deriv_kernel_matches_plain(dev, grid, m, tol, kev,
 
 
 @pytest.mark.parametrize("grid,m,b2", [
-    ((64, 96), 2000, 12), ((256, 256), 65536, 16), ((256, 256), 65536, 32),
+    ((64, 96), 2000, 48), ((256, 256), 65536, 64), ((256, 256), 65536, 33),
     ((16, 16, 64), 3000, 4), ((32, 32, 64), 20000, 6)])
 def test_wide_channel_spread_matches_plain(dev, grid, m, b2):
-    """Channel counts past one block's group (a channel pair): the
-    groups go to blockIdx.y, and the last one is partial at odd B2."""
+    """Channel counts past one block's group (rank 2: 32 channels; rank
+    3: a channel pair): the groups go to blockIdx.y, and the last one is
+    partial at B2 33 and at odd B2."""
     plan, geom, binned, _, coords = _layout(grid, m, 1e-6, dev)
     group = spread.launch_shape(geom, b2, plan.width)[0]
     assert group < b2
@@ -154,6 +155,52 @@ def test_wide_channel_spread_matches_plain(dev, grid, m, b2):
     _close(spread.spread_unplanned_cuda(values_pl, tb, geom, plan, coords),
            spread.spread_tiles_plain(values_pl, tb, geom, plan,
                                      coords=coords))
+
+
+@pytest.mark.parametrize("b2", (32, 24, 6, 3))
+@pytest.mark.parametrize("source", ("planned", "unplanned"))
+def test_rank2_channel_group_equals_pairs(dev, b2, source):
+    """The rank-2 spread of B2 channels in one group (one pass of each
+    tile's slots, lanes across channels) equals, bit for bit, the same
+    channels spread two at a time (the last alone at odd B2)."""
+    plan, geom, binned, kw, coords = _layout((256, 256), 65536, 1e-6, dev)
+    assert spread.launch_shape(geom, b2, plan.width)[0] == b2
+    vals = torch.from_numpy(np.random.default_rng(b2).standard_normal(
+        (b2, 65536)).astype(np.float32)).to(dev)
+    values_pl = binning.build_values_payload(vals, binned)
+    tb = binned.tile_bounds
+    if source == "planned":
+        run = lambda v: spread.spread_planned_cuda(v, tb, geom, plan, kw)
+    else:
+        run = lambda v: spread.spread_unplanned_cuda(v, tb, geom, plan,
+                                                     coords)
+    whole = run(values_pl)
+    pairs = torch.cat([run(values_pl[c:c + 2].contiguous())
+                       for c in range(0, b2, 2)], dim=-3)
+    assert torch.equal(whole, pairs)
+
+
+def test_rank2_spread_repeats_at_32_channels(dev):
+    """At 32 channels every lane of a warp holds a channel: the planned
+    and unplanned rank-2 spreads repeat bit for bit, one channel group
+    a launch."""
+    plan, geom, binned, kw, coords = _layout((256, 256), 65536, 1e-6, dev)
+    vals = torch.randn(32, 65536, device=dev)
+    values_pl = binning.build_values_payload(vals, binned)
+    tb = binned.tile_bounds
+    before = (spread.spread_planned_cuda.channel_groups,
+              spread.spread_unplanned_cuda.channel_groups)
+    first = spread.spread_planned_cuda(values_pl, tb, geom, plan, kw)
+    first_u = spread.spread_unplanned_cuda(values_pl, tb, geom, plan, coords)
+    for _ in range(3):
+        assert torch.equal(
+            first, spread.spread_planned_cuda(values_pl, tb, geom, plan, kw))
+        assert torch.equal(first_u, spread.spread_unplanned_cuda(
+            values_pl, tb, geom, plan, coords))
+    assert (spread.spread_planned_cuda.channel_groups - before[0],
+            spread.spread_unplanned_cuda.channel_groups - before[1]) == (4, 4)
+    _close(first, spread.spread_tiles_plain(values_pl, tb, geom, plan,
+                                            kw=kw))
 
 
 @pytest.mark.parametrize("grid,transform_type", [

@@ -29,7 +29,7 @@ def _geometry(rank, n, tol):
                                          POINTS[rank])
 
 
-@pytest.mark.parametrize("b2", (1, 2, 6, 16))
+@pytest.mark.parametrize("b2", (1, 2, 6, 16, 32))
 @pytest.mark.parametrize("tol", (1e-6, 1e-7))
 @pytest.mark.parametrize("rank,n", SIZES)
 def test_launch_plans_take_every_geometry(rank, n, tol, b2):
@@ -38,15 +38,21 @@ def test_launch_plans_take_every_geometry(rank, n, tol, b2):
 
     group, slab, lines, threads, smem = spread.launch_shape(
         geom, b2, plan.width)
-    assert group == min(b2, 2)
     assert 1 <= slab <= e0 and 1 <= lines <= e1
     assert threads == 32 * slab <= 1024 and smem <= _build.SMEM_LIMIT
     # The blocks' slabs and line ranges cover the extended tile, and the
-    # block's planes and window copies are what it asks for.
+    # block's planes and window copies (rank 2: staged slots) are what it
+    # asks for.
     assert -(-e0 // slab) * slab >= e0 and -(-e1 // lines) * lines >= e1
-    line = geom.ext[2] if rank == 3 else 1
-    assert smem == 4 * slab * (group * lines * line
-                               + 32 * (rank - 1) * plan.width)
+    if rank == 3:
+        assert group == min(b2, 2)
+        assert smem == 4 * slab * (group * lines * geom.ext[2]
+                                   + 32 * 2 * plan.width)
+    else:
+        # Channels across the lanes: every channel up to ROW_CHANNELS in
+        # one group, narrower only where one row of all E1 lines does
+        # not fit; the groups on the grid cover every channel.
+        _assert_rank2_plan(geom, b2, plan.width, group, lines, smem, slab)
 
     group, slab, slots, threads, smem = interp.launch_shape(geom, b2)
     assert group == 1
@@ -54,6 +60,48 @@ def test_launch_plans_take_every_geometry(rank, n, tol, b2):
     assert threads % 32 == 0 and threads - slots < 32
     assert 0 <= slab <= e0 and smem <= _build.SMEM_LIMIT
     assert smem == 2 * slab * 4 * int(np.prod(geom.ext[1:]))
+
+
+def _assert_rank2_plan(geom, b2, width, group, lines, smem, slab):
+    e1 = geom.ext[1]
+    chan = spread.line_channels(group)
+    assert group <= chan < 2 * group and chan <= spread.ROW_CHANNELS
+    # A row's planes, its warp's 32 slot records and their slot indices,
+    # and a count a warp.
+    stage = 32 * (spread.row_record(chan, width) + 1)
+    assert spread.row_record(chan, width) % 2 == 1
+    assert smem == 4 * (slab * (lines * (chan | 1) + stage)
+                        + spread.ROW_WARPS)
+
+    def fits(c):
+        return 4 * (e1 * (c | 1) + 32 * (spread.row_record(c, width) + 1)
+                    + spread.ROW_WARPS) <= spread.HALF_SM
+
+    if group < min(b2, spread.ROW_CHANNELS):
+        assert not fits(2 * chan) and (fits(chan) or chan == 1)
+    else:
+        assert group == min(b2, spread.ROW_CHANNELS)
+    assert lines == e1 or (chan == 1 and not fits(1))
+    groups = -(-b2 // group)
+    assert groups * group >= b2 > (groups - 1) * group
+
+
+@pytest.mark.parametrize("b2,groups", [(2, 1), (24, 1), (32, 1), (48, 2),
+                                       (64, 2)])
+def test_rank2_channel_groups_at_the_2d_benchmark_case(b2, groups):
+    """The 2D benchmark case (256^2 modes: fine 512^2, tiles 64^2 of ext
+    72^2, 200,000 points, width 7): every channel up to 32 in one group,
+    so one pass of a tile's slots serves them all."""
+    plan = make_plan(PlanSpec("type_1", "backward", 2, (256, 256),
+                              "complex64", 1e-6, 16))
+    geom = binning.choose_geometry(plan.fine_shape, plan.width, 200_000)
+    assert (plan.width, geom.ext, geom.tiles) == (7, (72, 72), (8, 8))
+    group, slab, lines, threads, smem = spread.launch_shape(geom, b2, 7)
+    assert -(-b2 // group) == groups and group == min(b2, 32)
+    assert lines == 72 and threads == 32 * slab
+    _assert_rank2_plan(geom, b2, 7, group, lines, smem, slab)
+    # Two blocks share an SM.
+    assert smem <= spread.HALF_SM
 
 
 # Rank 1: small fine grids (one tile, and ext 258 where no preference

@@ -8,7 +8,10 @@ unbanded geometry (128^3 modes, 800,000 points; planned and unplanned,
 B2 2 and 6, phi' on axis 0) and the 3D mats size (its first 200,000
 points, planned). The hashes let two trees be compared bit for bit: run
 the probe once with this tree and once with another checkout's package
-first on PYTHONPATH.
+first on PYTHONPATH. Then the planned 2D spread at the wide channel
+counts of the benchmark's 2D cells: 256^2 modes, 200,000 uniform points
+(seed 42), B2 32 and 2 (the 2D upstream case's 16 transforms), and the
+radial CG-SENSE layout (96 spokes of 512 samples on 256^2), B2 24.
 
 --cycles  also prints the clock64 counters of tools/torch_banded_probe.py
           for the unbanded 3D spread (unplanned, B2 2).
@@ -64,6 +67,32 @@ def cases(rank, grid, m):
     return out
 
 
+def wide_cases():
+    """(label, call) of the planned 2D spread at the 2D cells' widths."""
+    from tensorflow_nufft_tpu_torch.models import mri
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(42)
+    layouts = (
+        ("2d_200k", rng.uniform(-np.pi, np.pi, (200_000, 2)), (32, 2)),
+        ("radial", mri.radial_trajectory(96, 512), (24,)))
+    out = []
+    for tag, pts, widths in layouts:
+        pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        plan = make_plan(PlanSpec("type_1", "backward", 2, (256, 256),
+                                  "complex64", 1e-6, 1))
+        geom, binned = bin_for_plan(pts, plan)
+        kw = binning.build_weight_payload(binned, geom, plan)
+        gen = torch.Generator(device=dev).manual_seed(53)
+        for b2 in widths:
+            vals = binning.build_values_payload(torch.randn(
+                (b2, pts.shape[0]), generator=gen, device=dev), binned)
+            out.append((f"{tag} spread planned B2 {b2}",
+                        lambda v=vals, g=geom, b=binned, k=kw, p=plan:
+                        spread.spread_planned_cuda(v, b.tile_bounds, g, p,
+                                                   k)))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: the probe "
@@ -75,6 +104,9 @@ def main():
             print(f"{tag} {label}: {sha(fn())} {cuda_ms(fn, reps=10):.4f} ms",
                   flush=True)
         torch.cuda.empty_cache()
+    for label, fn in wide_cases():
+        print(f"{label}: {sha(fn())} {cuda_ms(fn, reps=20):.4f} ms",
+              flush=True)
     if "--cycles" in sys.argv:
         from torch_banded_probe import cycles
         cycles(dict(cases(3, (128, 128, 128), 800_000))[
